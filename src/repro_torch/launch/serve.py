@@ -1,0 +1,404 @@
+"""SpMV serving on one device — the port of ``repro.launch.serve --mode
+spmv``.
+
+Queued single-vector ``A @ x`` requests aggregate into one SpMM per flush
+(matrix stream amortized over the batch), measured against serving them
+one by one, all through one ``repro_torch.spmm.SparseOperator``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode spmv \\
+      --matrix hhh_like --scale 64 --requests 256 --max-batch 32 \\
+      --algorithm sellcs
+
+Online migration — ``--migrate auto`` starts in the zero-conversion
+merge-path CSR format, counts served multiplies, and converts to the
+SELL-C-σ target plan in a background thread once the live break-even
+estimate clears the projected remaining traffic; ``force`` converts
+unconditionally (still off the flush path); ``off`` (default) pins the
+start format. ``--metrics out.json`` dumps a ``repro.obs/v1`` document
+with per-flush phase spans, p50/p95/p99 flush latency, the migration
+decision inputs (``serve/multiplies_total``, ``serve/breakeven_estimate``,
+``serve/plan_swaps``, ``serve/convert_s``, ...) and one observed-vs-
+modeled residual record per flush. Headline timings are min-of-N
+(``--reps``).
+
+Runs on ``--device cuda`` (default) with the CUDA kernels; ``--device
+cpu`` runs the same path on the CPU (``--impl plain`` for the kernels'
+plain versions, ``ref``/``auto`` for the oracles). Multi-device serving
+(``--devices``, ``--mesh``) and ``--mode fleet`` come with later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import threading
+import time
+
+import numpy as np
+import torch
+
+
+class _MigrationController:
+    """The online break-even loop — the paper's "472 multiplications" §7
+    economics as a live control law over the serving traffic. Between
+    flushes it counts served multiplies, re-scores the target with the
+    live ``ResidualLedger`` (``select_distributed(feedback=)``), keeps the
+    break-even estimate ``convert_cost_s / per-multiply saving``, starts
+    the target build in a background thread when the projected remaining
+    traffic clears it (``force`` skips the test), and installs a finished
+    build through ``SparseOperator.swap`` between flushes."""
+
+    def __init__(self, op, stats, args, target_spec, ledger, reg=None):
+        from repro_torch.core.selector import (DEFAULT_CONVERSION_COST,
+                                               DEFAULT_THROUGHPUT,
+                                               DENSITY_THRESHOLD,
+                                               ZERO_CONVERSION_ALGO,
+                                               _augment_sellcs,
+                                               break_even_spmvs)
+        self.op = op
+        self.stats = stats
+        self.mode = args.migrate
+        self.max_batch = int(args.max_batch)
+        self.projected_total = int(args.requests)
+        self.target_spec = target_spec
+        self.ledger = ledger
+        self.reg = reg
+        self.multiplies = 0
+        self.swapped = False
+        self.swap_unix_s = None
+        self.swap_at_multiply = None
+        self.convert_s = None
+        self.error = None
+        self._min_per_mul = math.inf
+        self._last_saving = None
+        self._target_choice = None
+        self._worker = None
+        self._pending = None
+        low = stats.density < DENSITY_THRESHOLD
+        numa = (target_spec.num_devices or 1) > 1
+        self._thr, self._conv = _augment_sellcs(
+            dict(DEFAULT_THROUGHPUT[(numa, low)]),
+            dict(DEFAULT_CONVERSION_COST), stats)
+        self.breakeven = break_even_spmvs(
+            "sellcs", baseline=ZERO_CONVERSION_ALGO, numa_like=numa,
+            low_density=low, throughput=self._thr,
+            conversion_cost={**self._conv, ZERO_CONVERSION_ALGO: 0.0})
+        self._publish()
+
+    def note_flush(self, k, dt, rp):
+        """Called after every flush (k served columns in dt seconds on
+        plan ``rp``)."""
+        k = int(k)
+        self.multiplies += k
+        if self.reg is not None:
+            self.reg.counter("serve/multiplies_total").inc(k)
+        if self.mode == "off" or self.error is not None:
+            return
+        if not self.swapped:
+            self._min_per_mul = min(self._min_per_mul, dt / max(k, 1))
+            self._update_estimate(rp)
+            remaining = self.projected_total - self.multiplies
+            if self._worker is None and (self.mode == "force"
+                                         or remaining > self.breakeven):
+                self._start_build()
+        self._install_pending()
+        self._publish()
+
+    def finish(self):
+        """End of the traffic: join and install a build still in flight,
+        and surface a background failure here."""
+        if self._worker is not None:
+            self._worker.join()
+        self._install_pending()
+        self._publish()
+        if self.error is not None:
+            raise self.error
+
+    def _update_estimate(self, rp):
+        if not math.isfinite(self._min_per_mul):
+            return
+        from repro_torch.core.selector import (_matrix_bytes_est,
+                                               select_distributed)
+        from repro_torch.obs import choice_labels
+        from repro_torch.roofline import spmm_distributed_time
+        st, kb = self.stats, self.max_batch
+        ch = select_distributed(st, k=kb,
+                                num_spmvs=max(self.projected_total, 1),
+                                spec=self.target_spec, feedback=self.ledger)
+        self._target_choice = ch
+        pd, pm = ch.mesh_shape
+        gx = ch.gather if ch.compact_x else "upfront"
+        t_model = spmm_distributed_time(
+            st.m, st.n, kb, pd, ch.schedule,
+            matrix_bytes=_matrix_bytes_est(ch.algorithm, st),
+            max_row_nnz=st.max_row_nnz, num_chunks=ch.num_chunks,
+            model_devices=pm, compact_x=ch.compact_x, nnz=st.nnz,
+            gather=gx)
+        t_corr = self.ledger.correction(**choice_labels(
+            schedule=ch.schedule, num_chunks=ch.num_chunks,
+            mesh_shape=ch.mesh_shape, compact_x=ch.compact_x,
+            gather=gx if ch.compact_x else None))
+        c_model = rp.model_s(kb) * self.ledger.correction(**rp.labels())
+        per_now = self._min_per_mul
+        per_target = per_now * (t_model * t_corr) / max(c_model, 1e-30)
+        saving = per_now - per_target
+        self._last_saving = saving
+        if saving <= 0:
+            self.breakeven = math.inf
+            return
+        convert_s = self.convert_s
+        if convert_s is None:
+            cur = rp.spec.algorithm or "merge"
+            per_parcrs = per_now * (
+                self._thr.get(cur, self._thr["parcrs"])
+                / self._thr["parcrs"])
+            convert_s = self._conv["sellcs"] * per_parcrs
+        self.breakeven = convert_s / saving
+
+    def _start_build(self):
+        from repro_torch.core import PlanSpec
+        ch = self._target_choice
+        spec = self.target_spec if ch is None else PlanSpec(
+            num_devices=1, algorithm=ch.algorithm)
+
+        def build():
+            try:
+                t0 = time.perf_counter()
+                rp = self.op.realize(spec)
+                self.convert_s = time.perf_counter() - t0
+                self._pending = rp
+            except BaseException as e:       # surfaced in finish()
+                self.error = e
+
+        self._worker = threading.Thread(target=build, name="serve-migrate",
+                                        daemon=True)
+        self._worker.start()
+
+    def _install_pending(self):
+        rp = self._pending
+        if rp is None:
+            return
+        self._pending = None
+        self.op.swap(rp)
+        self.swapped = True
+        self.swap_unix_s = self.op.stats.last_swap_unix_s
+        self.swap_at_multiply = self.multiplies
+        if self.convert_s is not None and self._last_saving is not None \
+                and self._last_saving > 0:
+            self.breakeven = self.convert_s / self._last_saving
+        if self.reg is not None:
+            self.reg.counter("serve/plan_swaps").inc()
+            self.reg.gauge("serve/swap_unix_s").set(float(self.swap_unix_s))
+            self.reg.gauge("serve/swap_at_multiply").set(
+                float(self.swap_at_multiply))
+            if self.convert_s is not None:
+                self.reg.gauge("serve/convert_s").set(float(self.convert_s))
+        conv_ms = (self.convert_s or 0.0) * 1e3
+        print(f"[serve-spmv] migrated to {rp.label} after "
+              f"{self.swap_at_multiply} multiplies (convert "
+              f"{conv_ms:.1f} ms in background, break-even "
+              f"~{self.breakeven:.3g} multiplies)")
+
+    def _publish(self):
+        if self.reg is not None:
+            self.reg.gauge("serve/breakeven_estimate").set(
+                float(self.breakeven))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serving_pass(op, xs, args, reg=None, controller=None):
+    """The flush-by-flush serving loop: per-flush wall times into
+    ``serve/flush_s`` (split pre/post-migration when a controller runs),
+    one residual record per flush against the roofline prediction of the
+    plan that served it, and the migration controller's hook."""
+    from repro_torch.spmm import RequestBatcher
+
+    batcher = RequestBatcher(op, max_batch=args.max_batch, impl=args.impl,
+                             spmm_fn=lambda _m, X: op.matmul(X))
+    for x in xs:
+        batcher.submit(x)
+    ledger = reg.ledger if reg is not None else (
+        controller.ledger if controller is not None else None)
+    while batcher.pending:
+        rp = op.plan        # one read: the plan this flush executes on
+        k = min(batcher.pending, args.max_batch)
+        t0 = time.perf_counter()
+        batcher.flush()
+        _sync(op.device)
+        dt = time.perf_counter() - t0
+        if reg is not None:
+            reg.histogram("serve/flush_s").observe(dt)
+            if controller is not None:
+                phase = ("serve/flush_postmigrate_s" if controller.swapped
+                         else "serve/flush_premigrate_s")
+                reg.histogram(phase).observe(dt)
+        if ledger is not None:
+            ledger.record("serve/flush", dt, rp.model_s(k), k=k,
+                          **rp.labels(matrix=args.matrix, algo=rp.label,
+                                      backend=op.device.type))
+        if controller is not None:
+            controller.note_flush(k, dt, rp)
+    if controller is not None:
+        controller.finish()
+
+
+def _print_metrics_summary(reg):
+    flush = reg.histogram("serve/flush_s")
+    if flush.count:
+        p = flush.percentiles()
+        print(f"[serve-spmv] flush latency over {flush.count} flushes: "
+              f"p50 {p['p50']*1e3:.2f} ms, p95 {p['p95']*1e3:.2f} ms, "
+              f"p99 {p['p99']*1e3:.2f} ms"
+              f"{' (exact)' if flush.exact else ''}")
+    phases = [h for h in reg.histograms()
+              if h.count and h.name.startswith("batcher/")]
+    for h in sorted(phases, key=lambda h: h.name):
+        print(f"[serve-spmv]   phase {h.name:<24} n={h.count:<4} "
+              f"mean {h.mean*1e3:8.3f} ms  p95 "
+              f"{h.quantile(0.95)*1e3:8.3f} ms")
+    ledger = reg.ledger
+    if len(ledger):
+        print(f"[serve-spmv] residual (observed/modeled) over "
+              f"{len(ledger)} flushes: geomean {ledger.correction():.3g}")
+
+
+def serve_spmv(args):
+    """Batched (one SpMM per flush) vs sequential serving through one
+    :class:`repro_torch.spmm.SparseOperator`, optionally migrating online
+    from merge-path CSR to SELL-C-σ. Returns a dict with the headline
+    times (``t_batched``, ``t_seq``), the initial plan's conversion
+    seconds (``build_s``), the operator, the request vectors
+    (``xs``), the batched answers (``answers``: rid -> y) and their ticket
+    order (``rids``)."""
+    from repro_torch import obs
+    from repro_torch.core import PlanSpec, matrix_stats, resolve_device, spmv
+    from repro_torch.core.selector import ZERO_CONVERSION_ALGO
+    from repro_torch.data import matrices
+    from repro_torch.roofline import spmm_arithmetic_intensity
+    from repro_torch.spmm import RequestBatcher, SparseOperator
+
+    device = resolve_device(args.device)
+    suite = matrices.test_suite(scale=args.scale)
+    if args.matrix not in suite:
+        raise SystemExit(f"--matrix must be one of {sorted(suite)}")
+    if args.migrate != "off" and args.algorithm:
+        raise SystemExit(
+            "--algorithm pins the format, --migrate lets the break-even "
+            "economics choose it; drop one of the two")
+    coo = matrices.as_coo(suite[args.matrix].make(), device=device)
+    stats = matrix_stats(coo)
+    num_spmms = -(-args.requests // args.max_batch)
+
+    target_spec = PlanSpec(num_devices=1, algorithm="sellcs")
+    if args.migrate != "off":
+        initial_spec = PlanSpec(num_devices=1,
+                                algorithm=ZERO_CONVERSION_ALGO)
+    else:
+        initial_spec = PlanSpec(num_devices=1, algorithm=args.algorithm)
+
+    op = SparseOperator.from_coo(coo, initial_spec, impl=args.impl,
+                                 k_hint=args.max_batch,
+                                 num_spmvs=num_spmms)
+    algo, build_s = op.plan.label, op.plan.build_s
+    print(f"[serve-spmv] matrix={args.matrix} m={stats.m} n={stats.n} "
+          f"nnz={stats.nnz} algo={algo} (built in {build_s:.3f} s) "
+          f"max_batch={args.max_batch} device={device}"
+          + (f" migrate={args.migrate}" if args.migrate != "off" else ""))
+
+    rng = np.random.default_rng(args.seed)
+    xs = [torch.from_numpy(rng.standard_normal(stats.n).astype(np.float32)
+                           ).to(device) for _ in range(args.requests)]
+
+    reg = None
+    if args.metrics:
+        reg = obs.install(obs.MetricRegistry(
+            backend=device.type, mode="spmv", matrix=args.matrix, algo=algo,
+            devices=1, max_batch=args.max_batch, migrate=args.migrate,
+            requests=args.requests))
+    controller = None
+    if args.migrate != "off":
+        ledger = reg.ledger if reg is not None else obs.ResidualLedger()
+        controller = _MigrationController(op, stats, args, target_spec,
+                                          ledger, reg=reg)
+
+    def batched_run():
+        b = RequestBatcher(op, max_batch=args.max_batch, impl=args.impl,
+                           spmm_fn=lambda _m, X: op.matmul(X))
+        rids = [b.submit(x) for x in xs]
+        return b.drain(), rids, b.flushes
+
+    t_b = obs.time_min_of_n(batched_run, reps=args.reps, warmup=1)
+    out, rids, num_flushes = t_b.last_result
+    t_batched = t_b.best_s
+
+    t_s = obs.time_min_of_n(
+        lambda: [spmv(op.plan.matrix, x, impl=args.impl) for x in xs],
+        reps=args.reps, warmup=1)
+    seq, t_seq = t_s.last_result, t_s.best_s
+
+    for rid, y in zip(rids, seq):
+        torch.testing.assert_close(out[rid], y.to(out[rid].dtype),
+                                   rtol=2e-4, atol=2e-4)
+    ai1 = spmm_arithmetic_intensity(stats.nnz, stats.m, stats.n, 1)
+    aik = spmm_arithmetic_intensity(stats.nnz, stats.m, stats.n,
+                                    args.max_batch)
+    print(f"[serve-spmv] batched {t_batched*1e3:.1f} ms "
+          f"({num_flushes} SpMM calls) vs sequential "
+          f"{t_seq*1e3:.1f} ms ({len(xs)} SpMV calls) — "
+          f"speedup {t_seq/max(t_batched, 1e-9):.2f}x "
+          f"(min of {t_b.reps}, warmup {t_b.warmup})")
+    print(f"[serve-spmv] modelled intensity {ai1:.3f} -> {aik:.3f} "
+          f"flop/byte at k={args.max_batch}")
+
+    if reg is not None or controller is not None:
+        _serving_pass(op, xs, args, reg=reg, controller=controller)
+    if reg is not None:
+        _print_metrics_summary(reg)
+        reg.dump(args.metrics)
+        print(f"[serve-spmv] metrics -> {args.metrics}")
+        obs.uninstall()
+    return {"t_batched": t_batched, "t_seq": t_seq, "build_s": build_s,
+            "op": op, "xs": xs, "answers": out, "rids": rids}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="single-device SpMV serving (repro_torch port)")
+    ap.add_argument("--mode", choices=("spmv",), default="spmv")
+    ap.add_argument("--matrix", default="mawi_like")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--max-batch", type=int, default=32)
+    ap.add_argument("--scale", type=float, default=0.02)
+    ap.add_argument("--algorithm", default=None,
+                    help="force a format (default: core.select with k)")
+    ap.add_argument("--impl", default="auto",
+                    choices=("auto", "ref", "kernel", "plain"),
+                    help="kernel = the CUDA kernels (CUDA only); plain = "
+                         "their plain PyTorch versions; ref = the oracles; "
+                         "auto = kernel on cuda, ref on cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="device to serve on (cuda or cpu)")
+    ap.add_argument("--migrate", default="off",
+                    choices=("auto", "off", "force"),
+                    help="online break-even format migration from "
+                         "merge-path CSR to SELL-C-σ: when it pays (auto), "
+                         "unconditionally (force), or never (off)")
+    ap.add_argument("--metrics", default=None, metavar="OUT.json",
+                    help="install a repro_torch.obs registry and dump it "
+                         "here (repro.obs/v1)")
+    ap.add_argument("--reps", type=int, default=5,
+                    help="min-of-N repetitions for the headline timing")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return serve_spmv(args)
+
+
+if __name__ == "__main__":
+    main()
