@@ -2,11 +2,14 @@
 """Chip smoke test of the repro_torch port on one NVIDIA H100.
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds every kernel
-on the single-device SpMV serving path against its plain PyTorch version
-on the card, drives that path end to end through the user entry point
-(``repro_torch.launch.serve``) at the real size of ``hhh_like --scale 64``
-(m = n = 1,048,576, 12.6 M nonzeros, k = 32 flushes), shows through the
-wrappers' launch counters that the path went through the kernels, and
+of the ported paths against its plain PyTorch version on the card, drives
+the single-device SpMV serving path end to end through the user entry
+point (``repro_torch.launch.serve``) at the real size of ``hhh_like
+--scale 64`` (m = n = 1,048,576, 12.6 M nonzeros, k = 32 flushes), drives
+the transpose path (one-triangle symmetric storage, forward + adjoint
+GMRES through ``repro_torch.examples.gmres``, gradient steps through the
+differentiable ``sparse_matmul``) at 1,048,576 rows, shows through the
+wrappers' launch counters that each path went through its kernels, and
 prints one JSON line per kernel table and a final status line:
 
     python3 chip_smoke.py            # full run, one card
@@ -14,28 +17,44 @@ prints one JSON line per kernel table and a final status line:
 
 Phases:
   1. build the kernels (nvcc, sm_90a, one process per source);
-  2. kernel vs plain version for K1 (SELL-C-σ), K2 (merge-path SpMM),
-     K4 (merge-path SpMV) and the carry step on hhh_like --scale 64,
-     mawi_like --scale 4 and road_like --scale 8 for k in {1, 8, 32, 33}
-     (K4 is the k = 1 entry), with kernel, plain, torch.sparse CSR and
-     bound times;
+  2. kernel vs plain version for K1 (SELL-C-σ), K3 (its transpose), K2
+     (merge-path SpMM), K4 (merge-path SpMV) and the carry step on
+     hhh_like --scale 64, mawi_like --scale 4 and road_like --scale 8 for
+     k in {1, 8, 32, 33} (K4 is the k = 1 entry), with kernel, plain,
+     torch.sparse CSR (of A^T for K3) and bound times, and the whole
+     A^T X multiply (slot-X gather + K3) against the torch oracle;
   3. serve path A: --algorithm sellcs (K1), one flush checked against
      the torch oracle;
-  4. serve path B: --migrate force (K2, K4, carry step, one plan swap).
+  4. serve path B: --migrate force (K2, K4, carry step, one plan swap);
+  5. symmetric: road_like --scale 8 made symmetric (A + A^T, 1,048,576
+     rows) and stored one-triangle; the K1 + K3 combine for op N and op T
+     against the oracle of the full matrix, and its storage against the
+     general format's;
+  6. GMRES: ``repro_torch.examples.gmres`` at rmat scale 20 (1,048,576
+     rows) pinned to SELL-C-σ, forward (K1) and adjoint (K3) solves to a
+     relative residual < 1e-5 with no rebuild for the adjoint;
+  7. autograd: 5 gradient steps of the sparse-mixer loss of
+     ``examples/train_lm.py`` (hhh_like --scale 64, values 1/in-degree,
+     d_feat = 32, d_out = 16) through ``sparse_matmul``, whose backward
+     is K3; the first step's gradient against autograd through the torch
+     oracle ``spmm_ref(coo, ·)``.
 
 Bound: ``bound_ms`` is the larger of the bytes the SpMM function needs
 (CSR values and columns per nonzero, one row offset per row, X read once,
 Y written once; ``spmm_bytes``) over the data-sheet HBM rate and
 2 * nnz * k flops over the float32 peak. The stdout ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
-latency, batcher phases and conversion times), the card line, the
-``kernels`` JSON line and the status line.
+latency, batcher phases and conversion times; the symmetric, GMRES and
+autograd phases), the card line, the ``kernels`` JSON line and the status
+line. K3's ``launches`` there is the sum over the GMRES and autograd
+phases, each counted from zero.
 
 Tolerance: a kernel agrees with its plain version when
 ``max|kernel - plain| <= 1e-4 * max(1, max|plain|)`` — float32 sums taken
 in another order (K1 keeps the reference's order per slot but fuses the
-multiply-add; K2/K4 sum each row in shares and carries). Exits non-zero on
-any failure; there is no CPU fallback.
+multiply-add; K2/K4 sum each row in shares and carries; K3 adds with
+atomics in an order that varies from run to run). Exits non-zero on any
+failure; there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -103,7 +122,8 @@ def counters():
     from repro_torch.kernels import merge_spmv as MS
     from repro_torch.spmm import kernels as SK
     return {"K1": SK.sellcs_slots, "K2": SK._merge_spmm_partials,
-            "K4": MS.merge_spmv_partials, "carry": MS.carry_out_fixup}
+            "K3": SK.sellcs_slots_t, "K4": MS.merge_spmv_partials,
+            "carry": MS.carry_out_fixup}
 
 
 def reset_counts():
@@ -120,6 +140,8 @@ KERNEL_META = {
            "src/repro/spmm/kernels.py:342"),
     "K2": ("merge_spmm_partials", "src/repro_torch/csrc/merge_spmm.cu",
            "src/repro/spmm/kernels.py:196"),
+    "K3": ("sellcs_slots_t", "src/repro_torch/csrc/sellcs_spmm.cu",
+           "src/repro/spmm/kernels.py:456"),
     "K4": ("merge_spmv_partials", "src/repro_torch/csrc/merge_spmm.cu",
            "src/repro/kernels/merge_spmv.py:122"),
     "carry": ("merge_carry_fixup", "src/repro_torch/csrc/merge_spmm.cu",
@@ -143,7 +165,8 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
     from repro_torch.data import matrices
     from repro_torch.kernels import merge_spmv as MS
     from repro_torch.spmm import kernels as SK
-    from repro_torch.spmm.reference import spmm_csr
+    from repro_torch.spmm.reference import (sellcs_slot_x, spmm_coo_t,
+                                            spmm_csr)
     from repro_torch.spmm.sellcs import coo_to_sellcs
 
     t0 = time.perf_counter()
@@ -158,6 +181,10 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
     W, C, S = int(sc.data.shape[0]), sc.chunk, sc.num_slices
     crow, col, val = csr.row_ptr, csr.col_ind, csr.data
     A_lib = torch.sparse_csr_tensor(crow.long(), col.long(), val, (m, n))
+    # cuSPARSE baseline of A^T X: a CSR of A^T, built once, never the path
+    At_lib = torch.sparse_coo_tensor(
+        torch.stack([coo.cols.long(), coo.rows.long()]), coo.data,
+        (n, m)).coalesce().to_sparse_csr()
     print(f"[chip_smoke] {name} --scale {scale:g}: m={m} n={n} nnz={nnz} "
           f"P={P} D={D} W={W} C={C} fill={sc.fill_ratio:.3f} "
           f"(setup {time.perf_counter() - t0:.1f} s)", flush=True)
@@ -180,6 +207,42 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
         b, by = bound_ms(spmm_bytes(nnz, m, n, k), 2.0 * nnz * k)
         rows.append(("K1", max_err(yk, yp), tol_of(yp), cuda_ms(k1, reps),
                      cuda_ms(k1p, max(reps // 2, 1)), b, by, lib_ms))
+
+        # K3 (the transpose pass; X is [m, k], gathered into slot order
+        # outside the timed kernel, as the reference gathers outside its
+        # Pallas kernel)
+        Xm = torch.randn((m, k), generator=gen, device="cuda")
+        xs = sellcs_slot_x(sc.row_perm, Xm, m)
+
+        def k3():
+            return SK.sellcs_slots_t(sc.data, sc.cols, sc.slice_of,
+                                     sc.slice_ptr, sc.row_len, xs,
+                                     n_out=n, chunk=C)
+
+        def k3p():
+            return SK.sellcs_slots_t_plain(sc.data, sc.cols, sc.slice_of,
+                                           sc.slice_ptr, sc.row_len, xs,
+                                           n_out=n, chunk=C)
+        yk, yp = k3(), k3p()
+        torch.cuda.synchronize()
+        b, by = bound_ms(spmm_bytes(nnz, n, m, k), 2.0 * nnz * k)
+        rows.append(("K3", max_err(yk, yp), tol_of(yp), cuda_ms(k3, reps),
+                     cuda_ms(k3p, max(reps // 2, 1)), b, by,
+                     cuda_ms(lambda: At_lib @ Xm, reps)))
+        # the whole A^T X multiply (slot-X gather + K3) against the oracle
+        yt = SK.sellcs_spmm(sc, Xm, op="T")
+        ref_t = spmm_coo_t(coo, Xm)
+        err_t = max_err(yt, ref_t)
+        if err_t > tol_of(ref_t):
+            raise AssertionError(f"A^T X (gather + K3) vs oracle on {name} "
+                                 f"k={k}: {err_t:.3g}")
+        t_ms = cuda_ms(lambda: SK.sellcs_spmm(sc, Xm, op="T"), reps)
+        print(f"[chip_smoke]   A^T X k={k:<2} (gather + K3) {t_ms:.4f} ms, "
+              f"vs oracle max_abs_err={err_t:.3g}", flush=True)
+        shape_rows.append({"matrix": name, "scale": scale, "k": k,
+                           "multiply": "sellcs_spmm(op='T')", "ms": t_ms,
+                           "max_abs_err": err_t})
+        del Xm, xs, yt, ref_t
 
         # K2 + carry step
         def k2():
@@ -257,7 +320,7 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
                 table[kern] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                                "bound_ms": b, "bound_by": by,
                                "library_ms": lms}
-    del A_lib, sc, plan, csr, coo
+    del A_lib, At_lib, sc, plan, csr, coo
     torch.cuda.empty_cache()
 
 
@@ -309,6 +372,183 @@ def check_flush(res, max_batch: int) -> float:
     if err > tol_of(ref):
         raise AssertionError(f"flush disagrees with the oracle: {err:.3g}")
     return err
+
+
+def check_symmetric(scale: float, k: int, reps: int) -> dict:
+    """Phase 5: road_like made symmetric (A + A^T) and stored
+    one-triangle; the K1 + K3 combine for both ops against the oracle of
+    the full matrix; its storage against the general format's.
+
+    The issue-level rule "one triangle stores <= 0.55 of the general
+    format" holds for long rows (the CPU tests check it on a dense-ish
+    matrix); a 5-point stencil keeps 3 of its 5 entries per row in the
+    lower triangle (the diagonal stays), so the stream alone is 0.6 of the
+    general one and the per-row arrays (row_perm, row_len, the dense diag)
+    come on top. Here the check is that exactly one triangle is stored and
+    that the ratio stays below 0.8."""
+    import numpy as np
+    import torch
+    from repro_torch.core import to_coo
+    from repro_torch.data import matrices
+    from repro_torch.spmm import kernels as SK
+    from repro_torch.spmm.reference import spmm_coo
+    from repro_torch.spmm.sellcs import coo_to_sellcs
+
+    t0 = time.perf_counter()
+    r, c, v, shape = matrices.test_suite(scale)["road_like"].make()
+    full = to_coo(np.concatenate([r, c]), np.concatenate([c, r]),
+                  np.concatenate([v, v]), shape, device="cuda")
+    sym = coo_to_sellcs(full, structure="symmetric")
+    gen = coo_to_sellcs(full)
+    m = shape[0]
+    fr, fc, _ = full.host_triplets()
+    n_diag = int((fr == fc).sum())
+    print(f"[chip_smoke] symmetric road_like --scale {scale:g}: m={m} "
+          f"nnz={full.nnz} stored={sym.nnz} (setup "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if sym.nnz != (full.nnz + n_diag) // 2:
+        raise AssertionError(f"one triangle holds {(full.nnz + n_diag) // 2}"
+                             f" entries, the format stored {sym.nnz}")
+    ratio = sym.storage_bytes() / gen.storage_bytes()
+    if ratio >= 0.8:
+        raise AssertionError(f"one-triangle storage ratio {ratio:.3f}")
+    X = torch.randn((m, k), generator=torch.Generator(
+        device="cuda").manual_seed(99), device="cuda")
+    ref = spmm_coo(full, X)
+    errs = {}
+    for op in ("N", "T"):
+        errs[op] = max_err(SK.sellcs_spmm(sym, X, op=op), ref)
+        if errs[op] > tol_of(ref):
+            raise AssertionError(f"symmetric op={op} vs oracle: "
+                                 f"{errs[op]:.3g}")
+    sym_ms = cuda_ms(lambda: SK.sellcs_spmm(sym, X), reps)
+    gen_ms = cuda_ms(lambda: SK.sellcs_spmm(gen, X), reps)
+    print(f"[chip_smoke] symmetric k={k}: max_abs_err N {errs['N']:.3g} "
+          f"T {errs['T']:.3g}; storage ratio {ratio:.4f}; multiply "
+          f"one-triangle {sym_ms:.4f} ms, general {gen_ms:.4f} ms",
+          flush=True)
+    out = {"matrix": "road_like", "scale": scale, "k": k, "m": m,
+           "nnz": full.nnz, "stored_nnz": sym.nnz,
+           "storage_ratio": ratio, "max_abs_err": errs,
+           "sym_ms": sym_ms, "general_ms": gen_ms}
+    del full, sym, gen, X, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_gmres(scale: int) -> dict:
+    """Phase 6: forward and adjoint GMRES through one SELL-C-σ plan, with
+    the launch counters reset just before and read just after."""
+    from repro_torch.examples import gmres
+    t0 = time.perf_counter()
+    reset_counts()
+    res = gmres.main(["--device", "cuda", "--scale", str(scale),
+                      "--algorithm", "sellcs"])
+    counts = read_counts()
+    secs = time.perf_counter() - t0
+    print(f"[chip_smoke] gmres scale {scale}: residual {res['residual']:.3g}"
+          f" adjoint {res['residual_t']:.3g}; {res['stats']}; launches "
+          f"{counts}; {secs:.1f} s", flush=True)
+    if not (res["residual"] < 1e-5 and res["residual_t"] < 1e-5):
+        raise AssertionError(f"gmres residuals {res['residual']:.3g} / "
+                             f"{res['residual_t']:.3g}")
+    for kern in ("K1", "K3"):
+        if counts[kern] <= 0:
+            raise AssertionError(f"gmres never launched {kern}")
+    return {"scale": scale, "residual": res["residual"],
+            "residual_t": res["residual_t"], "plan": res["plan"],
+            "multiplies": res["stats"].multiplies,
+            "sellcs_builds": res["stats"].sellcs_builds, "seconds": secs,
+            "launches": counts}
+
+
+def run_autograd(scale: float, steps: int) -> dict:
+    """Phase 7: gradient steps of the sparse-mixer loss of
+    ``examples/train_lm.py`` through ``sparse_matmul`` (forward K1,
+    backward K3), the first gradient against autograd through the torch
+    oracle, with the launch counters reset just before the steps."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PlanSpec, to_coo
+    from repro_torch.data import matrices
+    from repro_torch.spmm import SparseOperator, sparse_matmul, spmm_ref
+
+    t0 = time.perf_counter()
+    rows, cols, _, shape = matrices.test_suite(scale)["hhh_like"].make()
+    n_nodes = shape[0]
+    deg = np.bincount(cols, minlength=shape[1]).astype(np.float32)
+    coo = to_coo(rows, cols, 1.0 / np.maximum(deg[cols], 1.0), shape,
+                 device="cuda")
+    A = SparseOperator.from_coo(coo, PlanSpec(num_devices=1,
+                                              algorithm="sellcs"),
+                                k_hint=16, num_spmvs=200)
+    rng = np.random.default_rng(0)
+    d_feat, d_out = 32, 16
+    feats = torch.from_numpy(rng.standard_normal((n_nodes, d_feat))
+                             .astype(np.float32)).cuda()
+    w_true = torch.from_numpy(rng.standard_normal((d_feat, d_out))
+                              .astype(np.float32)).cuda()
+    with torch.no_grad():
+        targets = sparse_matmul(A, feats @ w_true)
+    print(f"[chip_smoke] autograd hhh_like --scale {scale:g}: m={n_nodes} "
+          f"nnz={coo.nnz} plan {A.plan.label}/{A.plan.impl} (setup "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def loss_of(w, mm):
+        return torch.mean((mm(feats @ w) - targets) ** 2)
+
+    # step size 1/L by power iteration on the quadratic's Hessian map
+    # H(v) = 2/(n·d_out) · F^T A^T A F v (as the example does)
+    with torch.no_grad():
+        v = torch.from_numpy(rng.standard_normal((d_feat, d_out))
+                             .astype(np.float32)).cuda()
+        for _ in range(8):
+            v = v / torch.linalg.norm(v)
+            hv = feats.T @ sparse_matmul(A.T, sparse_matmul(A, feats @ v))
+            v = 2.0 / (n_nodes * d_out) * hv
+        lr = 1.0 / float(torch.linalg.norm(v))
+
+    w = torch.zeros((d_feat, d_out), device="cuda")
+    losses, grad0 = [], None
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        wv = w.clone().requires_grad_(True)
+        loss = loss_of(wv, lambda x: sparse_matmul(A, x))
+        (g,) = torch.autograd.grad(loss, wv)
+        grad0 = g if grad0 is None else grad0
+        losses.append(float(loss.detach()))
+        w = w - lr * g
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3 / steps
+    counts = read_counts()
+    w0 = torch.zeros((d_feat, d_out), device="cuda", requires_grad=True)
+    (g_ref,) = torch.autograd.grad(
+        loss_of(w0, lambda x: spmm_ref(coo, x)), w0)
+    err = max_err(grad0, g_ref)
+    # relative to the gradient's own size (no max(1, ·) floor: the
+    # gradient is O(0.1) and the two paths differ only in K3's add order)
+    tol = TOL_REL * float(g_ref.abs().max())
+    print(f"[chip_smoke] autograd: {steps} steps, loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}, {step_ms:.2f} ms/step; first gradient vs "
+          f"oracle max_abs_err={err:.3g} (max|grad| "
+          f"{float(g_ref.abs().max()):.3g}); launches {counts}", flush=True)
+    if err > tol:
+        raise AssertionError(f"sparse_matmul gradient vs oracle: {err:.3g}"
+                             f" > {tol:.3g}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"mixer loss did not fall: {losses}")
+    for kern in ("K1", "K3"):
+        if counts[kern] <= 0:
+            raise AssertionError(f"autograd never launched {kern}")
+    out = {"scale": scale, "steps": steps, "losses": losses,
+           "step_ms": step_ms, "grad_max_abs_err": err,
+           "grad_max_abs": float(g_ref.abs().max()), "lr": lr,
+           "launches": counts}
+    del A, coo, feats, targets
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -391,11 +631,19 @@ def main(argv=None) -> int:
         check_flush(res, MAIN_K)
         serve_rows.append(serve_summary("B", res, doc, counts_b))
         del res
+    torch.cuda.empty_cache()
+
+    # phases 5-7: the transpose path
+    sym_row = check_symmetric(8.0 / div, MAIN_K, reps)
+    gmres_row = run_gmres(14 if args.quick else 20)
+    grad_row = run_autograd(64.0 / div, 5)
 
     launches = {"K1": counts_a["K1"], "K2": counts_b["K2"],
+                "K3": gmres_row["launches"]["K3"]
+                + grad_row["launches"]["K3"],
                 "K4": counts_b["K4"], "carry": counts_b["carry"]}
     kernels = []
-    for key in ("K1", "K2", "K4", "carry"):
+    for key in ("K1", "K2", "K3", "K4", "carry"):
         nm, src, rep = KERNEL_META[key]
         row = table[key]
         kernels.append({"name": nm, "route": "cuda", "source": src,
@@ -407,7 +655,9 @@ def main(argv=None) -> int:
                         "library_ms": row["library_ms"]})
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    print(json.dumps({"rows": shape_rows, "serve": serve_rows}))
+    print(json.dumps({"rows": shape_rows, "serve": serve_rows,
+                      "symmetric": sym_row, "gmres": gmres_row,
+                      "autograd": grad_row}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,2 @@
+"""Examples on the port, run as modules (``python -m
+repro_torch.examples.<name>``)."""

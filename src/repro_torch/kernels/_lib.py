@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 SOURCES = {
-    "sellcs": "sellcs_spmm.cu",      # K1
+    "sellcs": "sellcs_spmm.cu",      # K1 and K3
     "merge": "merge_spmm.cu",        # K2, K4 and the carry step
 }
 
@@ -41,6 +41,8 @@ _I = ctypes.c_int
 # C entry point -> (library, argtypes); every one returns int
 SIGNATURES = {
     "sellcs_slots_launch": ("sellcs", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "sellcs_slots_t_launch": ("sellcs", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _I, _P]),
     "merge_spmm_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,
                                              _P, _I, _I, _I, _P]),
     "merge_spmv_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,

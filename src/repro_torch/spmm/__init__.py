@@ -4,10 +4,12 @@ Layers (one module each, mirroring ``repro.spmm``):
 
   ``sellcs``     SELL-C-σ storage
   ``reference``  pure-torch oracles per format (``impl="ref"``)
-  ``kernels``    the CUDA kernel wrappers K1 (SELL-C-σ) and K2 (merge CSR)
+  ``kernels``    the CUDA kernel wrappers K1 (SELL-C-σ), K3 (its
+                 transpose) and K2 (merge CSR)
   ``batching``   request batching for the serve path (k SpMVs -> 1 SpMM)
   ``operator``   SparseOperator: the partition-once/multiply-many handle
-                 with an atomic plan swap (online format migration)
+                 with an atomic plan swap (online format migration), its
+                 transpose view and the differentiable ``sparse_matmul``
 
 SpMV is the k = 1 special case throughout; ``repro_torch.core.spmv`` is
 the single-vector entry point.
@@ -23,9 +25,9 @@ from . import reference
 from .batching import RequestBatcher, SpmvRequest, batch_spmv
 from .kernels import choose_k_tile, csr_spmm, sellcs_spmm
 from .operator import (OperatorStats, RealizedPlan, SparseOperator,
-                       coo_fingerprint)
-from .reference import (TRANSPOSE_SLICE, spmm_coo, spmm_csr, spmm_ref,
-                        spmm_sellcs)
+                       TransposedOperator, coo_fingerprint, sparse_matmul)
+from .reference import (spmm_coo, spmm_coo_t, spmm_csr, spmm_ref,
+                        spmm_sellcs, spmm_sellcs_t)
 from .sellcs import SellCS, coo_to_sellcs
 
 IMPLS = ("auto", "ref", "kernel", "plain")
@@ -50,24 +52,35 @@ def spmm(mat, x: torch.Tensor, *, impl: str = "auto",
     reference's "pallas"); "plain" runs the kernels' plain PyTorch
     versions through the same padding and unpermute code (the counterpart
     of "pallas_interpret"); "ref" is the oracle; "auto" takes the kernel
-    for CUDA tensors and the oracle on the CPU. The kernel paths return
-    float32; the oracle returns ``promote_types(data, x)``."""
+    for CUDA tensors of a format that has one and the oracle otherwise.
+    The kernel paths return float32; the oracle returns
+    ``promote_types(data, x)``.
+
+    ``op='T'`` computes ``Y = A^T X`` over the same stored stream
+    (``X: [m, k]``, ``Y: [n, k]``); the kernel paths support it on
+    SELL-C-σ (K3), the oracle on SELL-C-σ and COO. A symmetric
+    one-triangle SELL-C-σ matrix accepts either op (``A^T == A``)."""
     if op not in ("N", "T"):
         raise ValueError(f"op must be 'N' or 'T', got {op!r}")
+    has_kernel = isinstance(mat, SellCS) or (isinstance(mat, CSR)
+                                             and op == "N")
+    if impl == "auto" and not has_kernel:
+        impl = "ref"
     impl = resolve_impl(impl, x.device)
     if impl == "ref":
         return spmm_ref(mat, x, op=op)
-    if op == "T":
-        raise NotImplementedError(TRANSPOSE_SLICE)
     if impl == "kernel" and x.device.type != "cuda":
         raise ValueError("impl='kernel' needs CUDA tensors; use "
                          "impl='plain' for the plain versions on the CPU")
+    if op == "T" and not isinstance(mat, SellCS):
+        raise TypeError(f"no transpose SpMM kernel for "
+                        f"{type(mat).__name__}; convert with coo_to_sellcs")
     plain = impl == "plain"
     x2 = x[:, None] if x.ndim == 1 else x
     if isinstance(mat, CSR):
         y = csr_spmm(mat, x2, k_tile=k_tile, plain=plain)
     elif isinstance(mat, SellCS):
-        y = sellcs_spmm(mat, x2, k_tile=k_tile, plain=plain)
+        y = sellcs_spmm(mat, x2, k_tile=k_tile, plain=plain, op=op)
     else:
         raise TypeError(f"no SpMM kernel for {type(mat).__name__}; convert "
                         "with coo_to_sellcs / coo_to_csr")
@@ -77,8 +90,10 @@ def spmm(mat, x: torch.Tensor, *, impl: str = "auto",
 __all__ = [
     "SellCS", "coo_to_sellcs", "spmm", "resolve_impl", "IMPLS",
     "choose_k_tile", "csr_spmm", "sellcs_spmm",
-    "spmm_ref", "spmm_coo", "spmm_csr", "spmm_sellcs", "reference",
+    "spmm_ref", "spmm_coo", "spmm_csr", "spmm_sellcs", "spmm_sellcs_t",
+    "spmm_coo_t", "reference",
     "RequestBatcher", "SpmvRequest", "batch_spmv",
     "SparseOperator", "RealizedPlan", "OperatorStats", "coo_fingerprint",
+    "TransposedOperator", "sparse_matmul",
     "COO", "CSR",
 ]

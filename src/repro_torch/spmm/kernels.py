@@ -1,10 +1,13 @@
-"""SpMM kernel wrappers for Hopper — SELL-C-σ (K1) and merge-path CSR (K2).
+"""SpMM kernel wrappers for Hopper — SELL-C-σ (K1), its transpose (K3)
+and merge-path CSR (K2).
 
 K1 :func:`sellcs_slots` replaces ``repro.spmm.kernels.sellcs_slots`` /
-``_sellcs_kernel``; K2 :func:`_merge_spmm_partials` replaces
-``repro.spmm.kernels._merge_spmm_partials`` / ``_merge_kernel``. Both are
-CUDA C++ in ``repro_torch/csrc`` (see the notes at the top of each source
-for the bound and the design). Each wrapper validates its operands,
+``_sellcs_kernel``; K3 :func:`sellcs_slots_t` replaces
+``repro.spmm.kernels.sellcs_slots_t`` / ``_sellcs_t_kernel``; K2
+:func:`_merge_spmm_partials` replaces
+``repro.spmm.kernels._merge_spmm_partials`` / ``_merge_kernel``. All are
+CUDA C++ in ``repro_torch/csrc`` (see the notes in each source for the
+bound and the design). Each wrapper validates its operands,
 launches on the current stream, raises on a launch error and counts its
 launches in ``<wrapper>.launches``. A wrapper given CPU tensors runs its
 plain PyTorch version instead (``*_plain`` here and in
@@ -28,8 +31,8 @@ from repro_torch.core.formats import CSR
 from repro_torch.kernels import _lib
 from repro_torch.kernels import merge_spmv as _merge
 from repro_torch.roofline.analysis import csr_stream_bytes, ridge_intensity
-from .reference import TRANSPOSE_SLICE
-from .sellcs import SYMMETRIC_SLICE, SellCS
+from .reference import sellcs_slot_x
+from .sellcs import SellCS
 
 # plain-version work is chunked over width-rows so its [w, C, k] temporary
 # stays below this many elements
@@ -114,27 +117,126 @@ def sellcs_slots(data: torch.Tensor, cols: torch.Tensor,
 sellcs_slots.launches = 0
 
 
+# --------------------------------------------------------------------------
+# K3: SELL-C-σ transpose pass
+# --------------------------------------------------------------------------
+def sellcs_slots_t_plain(data: torch.Tensor, cols: torch.Tensor,
+                         slice_of: torch.Tensor, slice_ptr: torch.Tensor,
+                         row_len: torch.Tensor, x_slots: torch.Tensor, *,
+                         n_out: int, chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of K3: f32 ``[n_out, k]`` column sums of
+    ``data[w, l] * x_slots[slice_of[w]*C + l]`` over the stored entries,
+    padding entries (depth ``>= row_len``) skipped as the kernel does."""
+    W = int(data.shape[0])
+    k = int(x_slots.shape[1])
+    dev = x_slots.device
+    x_slots = x_slots.to(torch.float32)
+    y = torch.zeros((n_out, k), dtype=torch.float32, device=dev)
+    if W == 0:
+        return y
+    lanes = torch.arange(chunk, device=dev)
+    step = max(_PLAIN_CHUNK_ELEMS // max(chunk * k, 1), 1)
+    for w0 in range(0, W, step):
+        w = torch.arange(w0, min(w0 + step, W), device=dev)
+        s = slice_of[w].long()
+        slot = s[:, None] * chunk + lanes[None]                 # [w, C]
+        real = (w - slice_ptr[s])[:, None] < row_len[slot]
+        contrib = (data[w][real].to(torch.float32)[:, None]
+                   * x_slots[slot[real]])                       # [e, k]
+        y.index_add_(0, cols[w][real].long(), contrib)
+    return y
+
+
+def sellcs_slots_t(data: torch.Tensor, cols: torch.Tensor,
+                   slice_of: torch.Tensor, slice_ptr: torch.Tensor,
+                   row_len: torch.Tensor, x_slots: torch.Tensor, *,
+                   n_out: int, chunk: int) -> torch.Tensor:
+    """K3: ``Y[cols[w, l], :] += data[w, l] * x_slots[slice_of[w]*C + l, :]``
+    over the stored entries -> f32[n_out, k] in natural column order.
+    ``x_slots`` is X permuted into slot space
+    (:func:`repro_torch.spmm.reference.sellcs_slot_x`). The adds are
+    atomic, so their order (and the last bits) vary from run to run."""
+    if x_slots.device.type == "cpu":
+        return sellcs_slots_t_plain(data, cols, slice_of, slice_ptr,
+                                    row_len, x_slots, n_out=n_out,
+                                    chunk=chunk)
+    _lib.require(data, "data", torch.float32, 2)
+    _lib.require(cols, "cols", torch.int32, 2)
+    _lib.require(slice_of, "slice_of", torch.int32, 1)
+    _lib.require(slice_ptr, "slice_ptr", torch.int32, 1)
+    _lib.require(row_len, "row_len", torch.int32, 1)
+    _lib.require(x_slots, "x_slots", torch.float32, 2)
+    W = int(data.shape[0])
+    S = int(slice_ptr.shape[0]) - 1
+    if data.shape != cols.shape or data.shape[1] != chunk:
+        raise ValueError(f"data/cols must be [W, {chunk}], got "
+                         f"{tuple(data.shape)} / {tuple(cols.shape)}")
+    if slice_of.shape[0] != W or row_len.shape[0] != S * chunk \
+            or x_slots.shape[0] != S * chunk:
+        raise ValueError("slice_of must be [W], row_len and x_slots "
+                         "[num_slices * chunk]")
+    k = int(x_slots.shape[1])
+    y = torch.zeros((n_out, k), dtype=torch.float32, device=x_slots.device)
+    fn = "sellcs_slots_t_launch"
+    _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(),
+                              slice_of.data_ptr(), slice_ptr.data_ptr(),
+                              row_len.data_ptr(), x_slots.data_ptr(),
+                              y.data_ptr(), W, chunk, k,
+                              _lib.stream_of(x_slots)), fn)
+    sellcs_slots_t.launches += 1
+    return y
+
+
+sellcs_slots_t.launches = 0
+
+
+def _sellcs_t_pass(sc: SellCS, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    """``A_stored^T X`` (``X: [m, k]`` f32) -> f32[n, k]: the slot-X gather
+    (a torch ``index_select``, as the reference gathers outside its
+    kernel), then K3."""
+    xs = sellcs_slot_x(sc.row_perm, x, sc.shape[0])
+    fn = sellcs_slots_t_plain if plain else sellcs_slots_t
+    return fn(sc.data, sc.cols, sc.slice_of, sc.slice_ptr, sc.row_len, xs,
+              n_out=sc.shape[1], chunk=sc.chunk)
+
+
 def sellcs_spmm(sc: SellCS, x: torch.Tensor, *, k_tile: Optional[int] = None,
                 plain: bool = False, op: str = "N") -> torch.Tensor:
     """SELL-C-σ SpMM ``Y = A X`` (``X: [n, k]``) -> f32[m, k]: K1 over the
     slice stream, then the σ-sort permutation is undone by one scatter
-    (padding slots land on row m, dropped). ``plain=True`` runs K1's plain
-    version on any device; ``k_tile`` is ignored (K1 covers all k)."""
-    if op != "N":
-        raise NotImplementedError(TRANSPOSE_SLICE)
-    if sc.structure != "general":
-        raise NotImplementedError(SYMMETRIC_SLICE)
-    m = sc.shape[0]
+    (padding slots land on row m, dropped).
+
+    ``op='T'`` computes ``Y = A^T X`` (``X: [m, k]``) -> f32[n, k] with K3.
+    Symmetric one-triangle storage combines both passes over the stored
+    triangle (``A X = N(X) + T(X) - diag * X``), for which ``op='T'`` and
+    ``op='N'`` coincide. ``plain=True`` runs the kernels' plain versions on
+    any device; ``k_tile`` is ignored (the kernels cover all k)."""
+    if op not in ("N", "T"):
+        raise ValueError(f"op must be 'N' or 'T', got {op!r}")
+    m, n = sc.shape
     k = int(x.shape[1])
     dev = x.device
+    if x.shape[0] != (m if op == "T" else n):
+        raise ValueError(f"X must have {m if op == 'T' else n} rows for "
+                         f"op={op!r} on a {m}x{n} matrix, got "
+                         f"{tuple(x.shape)}")
+    x = x.to(torch.float32).contiguous()
+    sym = sc.structure == "symmetric"
+    if op == "T" and not sym:
+        if sc.nnz == 0:
+            return torch.zeros((n, k), dtype=torch.float32, device=dev)
+        return _sellcs_t_pass(sc, x, plain)
     if sc.nnz == 0:
         return torch.zeros((m, k), dtype=torch.float32, device=dev)
     slots_fn = sellcs_slots_plain if plain else sellcs_slots
-    y_slots = slots_fn(sc.data, sc.cols, sc.slice_ptr,
-                       x.to(torch.float32).contiguous(),
+    y_slots = slots_fn(sc.data, sc.cols, sc.slice_ptr, x,
                        num_slices=sc.num_slices, chunk=sc.chunk)
     y = torch.zeros((m + 1, k), dtype=torch.float32, device=dev)
-    return y.index_add_(0, sc.row_perm.long(), y_slots)[:m]
+    y = y.index_add_(0, sc.row_perm.long(), y_slots)[:m]
+    if sym:
+        y += _sellcs_t_pass(sc, x, plain)
+        y -= sc.diag.to(torch.float32)[:, None] * x
+    return y
 
 
 # --------------------------------------------------------------------------

@@ -8,10 +8,14 @@ concurrent flush sees either the old plan or the new one, never a torn
 mix. ``op.realize(spec)`` builds a plan without installing it, which is
 what the serve migration controller runs in its background thread.
 
-This slice executes single-device plans. Multi-device plans
-(``num_devices > 1``, ``shrink_to``), the transpose surface (``rmatmul``,
-``.T``) and the differentiable ``sparse_matmul`` raise
-``NotImplementedError`` naming the slice that brings them.
+Every plan also carries ``multiply_t`` (``X -> A^T X`` over the same
+converted matrix): ``op.rmatmul``, the ``op.T`` view and the backward
+pass of the differentiable :func:`sparse_matmul` run it, so the
+transpose never builds a second format.
+
+This port executes single-device plans. Multi-device plans
+(``num_devices > 1``, ``shrink_to``) raise ``NotImplementedError``
+naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -31,10 +35,6 @@ from repro_torch.core.selector import (MachineSpec, MatrixStats, PlanSpec,
 
 MESH_SLICE = ("multi-device plans are not ported yet: they come with the "
               "multi-device schedules slice (ROADMAP queue 1, module 9)")
-TRANSPOSE_OP_SLICE = ("the transpose surface (rmatmul, .T, sparse_matmul as "
-                      "a torch.autograd.Function) is not ported yet: it "
-                      "comes with the transpose kernel slice (ROADMAP "
-                      "queue 2, kernel K3)")
 
 
 def coo_fingerprint(coo: COO) -> str:
@@ -60,8 +60,8 @@ def coo_fingerprint(coo: COO) -> str:
 
 class RealizedPlan(NamedTuple):
     """One executable multiply plan: the resolved :class:`PlanSpec`, the
-    converted matrix, the multiply closure and what observability needs to
-    price it (the roofline ``model_s(k)`` closure, the measured build
+    converted matrix, the multiply closures and what observability needs
+    to price it (the roofline ``model_s(k)`` closure, the measured build
     seconds). Immutable — :meth:`SparseOperator.swap` installs a whole
     plan in one reference assignment."""
     spec: PlanSpec
@@ -71,6 +71,10 @@ class RealizedPlan(NamedTuple):
     impl: str                    # resolved impl ("kernel"/"plain"/"ref")
     model_s: Callable            # k -> roofline seconds for one flush
     build_s: float               # measured convert seconds
+    multiply_t: Optional[Callable] = None
+                                 # X -> A^T X over the SAME converted
+                                 #   matrix; every realized plan carries
+                                 #   one, so rmatmul never rebuilds
 
     def labels(self, **extra) -> Dict[str, str]:
         """Canonical residual-ledger labels for this plan's knobs."""
@@ -169,11 +173,30 @@ class SparseOperator:
     __matmul__ = matmul
 
     def rmatmul(self, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(TRANSPOSE_OP_SLICE)
+        """``Y = A^T X`` (``X: [m, k]``, ``Y: [n, k]``) under the SAME
+        installed plan: the transpose multiplies the stored stream with
+        the roles of the row permutation and the column scatter
+        exchanged, so no second format exists to drift out of sync with
+        the forward one. Counts toward the same break-even
+        ``multiplies``."""
+        rp = self._plan
+        if rp.multiply_t is None:
+            raise ValueError(
+                f"plan {rp.label!r} carries no transpose multiply; "
+                "re-realize it (pre-transpose plans cannot rmatmul)")
+        y = rp.multiply_t(x)
+        k = 1 if x.ndim == 1 else int(x.shape[1])
+        with self._lock:
+            self.stats.calls += 1
+            self.stats.multiplies += k
+        return y
 
     @property
-    def T(self):
-        raise NotImplementedError(TRANSPOSE_OP_SLICE)
+    def T(self) -> "TransposedOperator":
+        """Transpose view: ``op.T @ x`` is ``op.rmatmul(x)``. A view, not
+        a copy — it reads the operator's current plan at each multiply, so
+        swaps show through and ``op.T.T is op``."""
+        return TransposedOperator(self)
 
     # -- write side --------------------------------------------------------
     def realize(self, spec: PlanSpec) -> RealizedPlan:
@@ -210,8 +233,58 @@ class SparseOperator:
         raise NotImplementedError(MESH_SLICE)
 
 
-def sparse_matmul(op: SparseOperator, x: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(TRANSPOSE_OP_SLICE)
+class TransposedOperator:
+    """Zero-copy transpose view over a :class:`SparseOperator` — the
+    ``op.T`` surface. Shares the parent's plan (and so its swap atomicity
+    and break-even accounting); only the multiply direction and the
+    reported shape flip."""
+
+    def __init__(self, base: SparseOperator):
+        self._base = base
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        m, n = self._base.shape
+        return n, m
+
+    @property
+    def plan(self) -> RealizedPlan:
+        return self._base.plan
+
+    @property
+    def T(self) -> SparseOperator:
+        return self._base
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        return self._base.rmatmul(x)
+
+    __matmul__ = matmul
+
+    def rmatmul(self, x: torch.Tensor) -> torch.Tensor:
+        return self._base.matmul(x)
+
+
+class _SparseMatmul(torch.autograd.Function):
+    """Forward ``op.matmul(x)``; backward ``op.rmatmul(g)`` read from the
+    plan installed at backward time. ``op`` is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op = op
+        return op.matmul(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.op.rmatmul(g), None
+
+
+def sparse_matmul(op, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``Y = op @ x`` for 1-D or 2-D ``x``: the forward
+    multiply runs through the operator's realized plan and the backward
+    through the SAME plan's transpose multiply (``d loss/d x =
+    op.rmatmul(g)``, ``A^T g`` over the one stored stream). ``op`` is a
+    :class:`SparseOperator` or its :class:`TransposedOperator` view."""
+    return _SparseMatmul.apply(x, op)
 
 
 def _realize_single(coo: COO, stats: MatrixStats, spec: PlanSpec, *,
@@ -219,16 +292,18 @@ def _realize_single(coo: COO, stats: MatrixStats, spec: PlanSpec, *,
     from repro_torch.core.convert import convert
     from repro_torch.kernels.merge_spmv import cached_merge_plan
     from repro_torch.roofline import spmm_distributed_time
-    from repro_torch.spmm.sellcs import SYMMETRIC_SLICE
+    from repro_torch.spmm import resolve_impl
+    from repro_torch.spmm.sellcs import SellCS
     t0 = time.perf_counter()
     algo = spec.algorithm or select(stats, MachineSpec(1),
                                     num_spmvs=num_spmvs, k=k_hint)
     structure = spec.structure or "general"
-    if structure != "general":
-        raise NotImplementedError(SYMMETRIC_SLICE)
-    from repro_torch.spmm import resolve_impl
+    if structure == "symmetric" and algo != "sellcs":
+        raise ValueError(
+            "structure='symmetric' (one-triangle storage) is executable "
+            f"only on the SELL-C-σ stream, not {algo!r}")
     impl_r = resolve_impl(impl, coo.device)
-    mat = convert(coo, algo)
+    mat = convert(coo, algo, structure=structure)
     if isinstance(mat, CSR) and impl_r != "ref":
         # every CSR multiply runs the merge path: its plan is part of the
         # conversion, built here so that no served flush builds it
@@ -238,6 +313,17 @@ def _realize_single(coo: COO, stats: MatrixStats, spec: PlanSpec, *,
     def multiply(X):
         from repro_torch.spmm import spmm
         return spmm(mat, X, impl=impl_r)
+
+    if isinstance(mat, SellCS):
+        def multiply_t(X):
+            from repro_torch.spmm import spmm
+            return spmm(mat, X, impl=impl_r, op="T")
+    else:
+        # formats without a transpose path multiply the immutable COO
+        # source the operator already owns — correct, just unamortized
+        def multiply_t(X):
+            from repro_torch.spmm.reference import spmm_ref
+            return spmm_ref(coo, X, op="T")
 
     def model_s(k):
         # the distributed model at P=1 degenerates to the plain
@@ -249,8 +335,8 @@ def _realize_single(coo: COO, stats: MatrixStats, spec: PlanSpec, *,
 
     resolved = dataclasses.replace(spec, algorithm=algo, structure=structure)
     return RealizedPlan(resolved, algo, mat, multiply, impl_r, model_s,
-                        time.perf_counter() - t0)
+                        time.perf_counter() - t0, multiply_t=multiply_t)
 
 
 __all__ = ["SparseOperator", "RealizedPlan", "OperatorStats", "PlanSpec",
-           "coo_fingerprint", "sparse_matmul"]
+           "TransposedOperator", "coo_fingerprint", "sparse_matmul"]

@@ -1,4 +1,5 @@
-"""Pure-torch SpMM oracles (``Y = A @ X``, ``X: [n, k]``).
+"""Pure-torch SpMM oracles (``Y = A @ X``, ``X: [n, k]``, and the
+transpose ``Y = A^T X``, ``X: [m, k]``).
 
 The correctness baselines for every format's multi-RHS multiply, and the
 ``impl="ref"`` path of the dispatcher. They run on CPU and CUDA alike and
@@ -10,10 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import COO, CSR
-from .sellcs import SYMMETRIC_SLICE, SellCS
-
-TRANSPOSE_SLICE = ("op='T' (A^T X) is not ported yet: it comes with the "
-                   "transpose kernel slice (ROADMAP queue 2, kernel K3)")
+from .sellcs import SellCS
 
 
 def _as_2d(x: torch.Tensor):
@@ -74,14 +72,42 @@ def sellcs_slots_ref(data: torch.Tensor, cols: torch.Tensor,
                         contrib.reshape(-1, x2.shape[1]))
 
 
+def sellcs_slot_x(row_perm: torch.Tensor, x2: torch.Tensor,
+                  m: int) -> torch.Tensor:
+    """Permute X into slot space for the transpose pass: ``x_slots[s] =
+    X[row_perm[s]]``, with padding slots (``row_perm == m``) reading a zero
+    row. After this gather the transpose pass reads one contiguous C-block
+    of X per width-row."""
+    x_pad = torch.cat([x2, x2.new_zeros((1, x2.shape[1]))], dim=0)
+    return x_pad.index_select(0, row_perm.long())
+
+
+def sellcs_slots_t_ref(data: torch.Tensor, cols: torch.Tensor,
+                       slice_of: torch.Tensor, x_slots: torch.Tensor, *,
+                       n_out: int, chunk: int) -> torch.Tensor:
+    """Transpose slot pass [n_out, k] — the oracle of
+    ``repro_torch.spmm.kernels.sellcs_slots_t``: each width-row reads its
+    C-block of the slot-permuted X and scatter-adds into its columns. The
+    output is in natural column order (the σ-permutation was consumed by
+    :func:`sellcs_slot_x`). Padding entries (data == 0, cols == 0) add
+    zero into column 0."""
+    dtype = torch.promote_types(data.dtype, x_slots.dtype)
+    k = x_slots.shape[1]
+    slot = (slice_of.long()[:, None] * chunk
+            + torch.arange(chunk, device=data.device)[None])     # [W, C]
+    contrib = data.to(dtype)[:, :, None] * x_slots.to(dtype)[slot]
+    y = torch.zeros((n_out, k), dtype=dtype, device=data.device)
+    return y.index_add_(0, cols.reshape(-1).long(), contrib.reshape(-1, k))
+
+
 def spmm_sellcs(sc: SellCS, x: torch.Tensor) -> torch.Tensor:
     """Slice-structured SpMM: one gather + FMA per width-row, then a single
     permutation scatter back to original row order (padding slots scatter
-    to row m, dropped)."""
-    if sc.structure != "general":
-        raise NotImplementedError(SYMMETRIC_SLICE)
+    to row m, dropped). Symmetric one-triangle storage combines the normal
+    and transpose passes over the stored triangle:
+    ``A X = N(X) + T(X) - diag * X``."""
     x2, squeeze = _as_2d(x)
-    m, _ = sc.shape
+    m, n = sc.shape
     k = x2.shape[1]
     dtype = torch.promote_types(sc.data.dtype, x2.dtype)
     if sc.nnz == 0 or sc.data.shape[0] == 0:
@@ -91,15 +117,51 @@ def spmm_sellcs(sc: SellCS, x: torch.Tensor) -> torch.Tensor:
                                num_slices=sc.num_slices, chunk=sc.chunk)
     y = torch.zeros((m + 1, k), dtype=dtype, device=x2.device)
     y = y.index_add_(0, sc.row_perm.long(), y_slots)[:m]
+    if sc.structure == "symmetric":
+        xs = sellcs_slot_x(sc.row_perm, x2, m)
+        y = (y + sellcs_slots_t_ref(sc.data, sc.cols, sc.slice_of, xs,
+                                    n_out=n, chunk=sc.chunk)
+             - sc.diag.to(dtype)[:, None] * x2.to(dtype))
     return y[:, 0] if squeeze else y
 
 
+def spmm_sellcs_t(sc: SellCS, x: torch.Tensor) -> torch.Tensor:
+    """``Y = A^T X`` over the same stored stream (``X: [m, k]``,
+    ``Y: [n, k]``). For symmetric storage ``A^T == A``, so this is exactly
+    the symmetric forward multiply."""
+    if sc.structure == "symmetric":
+        return spmm_sellcs(sc, x)
+    x2, squeeze = _as_2d(x)
+    m, n = sc.shape
+    k = x2.shape[1]
+    dtype = torch.promote_types(sc.data.dtype, x2.dtype)
+    if sc.nnz == 0 or sc.data.shape[0] == 0:
+        y = torch.zeros((n, k), dtype=dtype, device=x2.device)
+        return y[:, 0] if squeeze else y
+    xs = sellcs_slot_x(sc.row_perm, x2, m)
+    y = sellcs_slots_t_ref(sc.data, sc.cols, sc.slice_of, xs,
+                           n_out=n, chunk=sc.chunk)
+    return y[:, 0] if squeeze else y
+
+
+def spmm_coo_t(coo: COO, x: torch.Tensor) -> torch.Tensor:
+    """``Y = A^T X`` oracle on triplets (the transpose is a relabeling)."""
+    m, n = coo.shape
+    return spmm_coo(COO(coo.cols, coo.rows, coo.data, (n, m)), x)
+
+
 def spmm_ref(mat, x: torch.Tensor, *, op: str = "N") -> torch.Tensor:
-    """Oracle dispatch over the storage formats this slice carries."""
+    """Oracle dispatch over the storage formats this port carries.
+    ``op='T'`` computes ``A^T X`` (supported for SellCS and COO)."""
     if op not in ("N", "T"):
         raise ValueError(f"op must be 'N' or 'T', got {op!r}")
     if op == "T":
-        raise NotImplementedError(TRANSPOSE_SLICE)
+        if isinstance(mat, SellCS):
+            return spmm_sellcs_t(mat, x)
+        if isinstance(mat, COO):
+            return spmm_coo_t(mat, x)
+        raise TypeError(
+            f"no transpose SpMM oracle for {type(mat).__name__}")
     if isinstance(mat, SellCS):
         return spmm_sellcs(mat, x)
     if isinstance(mat, COO):

@@ -13,11 +13,17 @@ Layout (width-major, slice-concatenated), identical to
   ``l`` of slice ``slice_of[w]``, where ``j = w - slice_ptr[slice_of[w]]``.
   Padding entries carry ``data == 0`` and ``cols == 0`` (harmless FMA).
 
-This slice keeps the JAX package's ``DEFAULT_C = 128`` and
+Symmetric one-triangle mode (``structure="symmetric"``): for ``A == A^T``
+only the lower triangle (``row >= col``, diagonal included) enters the
+slice stream, and a dense ``diag`` rides along so the multiply combines
+the normal and transpose passes over the one stored triangle:
+``A X = N(X) + T(X) - diag * X``. ``to_coo`` mirrors the off-diagonal
+entries back out.
+
+This port keeps the JAX package's ``DEFAULT_C = 128`` and
 ``DEFAULT_SIGMA_SLICES`` so the served stream is exactly the one the
 reference builds; a slice height chosen for Hopper is a measured later
-change. One-triangle ``structure="symmetric"`` storage comes with the
-transpose kernel.
+change.
 """
 from __future__ import annotations
 
@@ -32,10 +38,6 @@ from repro_torch.core.formats import COO
 DEFAULT_C = 128
 DEFAULT_SIGMA_SLICES = 16   # default σ = 16 slices' worth of rows
 
-SYMMETRIC_SLICE = ("structure='symmetric' (one-triangle storage) is not "
-                   "ported yet: it comes with the transpose kernel slice "
-                   "(ROADMAP queue 2, kernel K3)")
-
 
 @dataclasses.dataclass(eq=False)
 class SellCS:
@@ -47,11 +49,12 @@ class SellCS:
     row_perm: torch.Tensor      # int32[S*C] — permuted slot -> original row
                                 #   (padding slots point at m)
     row_len: torch.Tensor       # int32[S*C] — true nnz of each slot
-    diag: Optional[torch.Tensor]
+    diag: Optional[torch.Tensor]  # f32[m] dense diagonal (symmetric mode)
     shape: Tuple[int, int]
     chunk: int                  # C — slice height
     sigma: int                  # σ — sorting window (rows)
     nnz: int                    # stored nonzeros before padding
+                                #   (one triangle in symmetric mode)
     structure: str = "general"
 
     @property
@@ -87,7 +90,9 @@ class SellCS:
         return b
 
     def to_coo(self) -> COO:
-        """Exact round-trip (host side), including explicit zeros."""
+        """Exact round-trip (host side), including explicit zeros. In
+        symmetric mode the stored lower triangle is mirrored back out, so
+        the result is dense-equivalent to the full matrix."""
         C = self.chunk
         data = self.data.cpu().numpy()
         cols = self.cols.cpu().numpy()
@@ -109,10 +114,51 @@ class SellCS:
         rows = row_perm[slot][valid].astype(np.int32)
         vals = data[valid]
         ccols = cols[valid].astype(np.int32)
+        if self.structure == "symmetric":
+            off = rows != ccols                  # strict lower triangle
+            rows, ccols = (np.concatenate([rows, ccols[off]]),
+                           np.concatenate([ccols, rows[off]]))
+            vals = np.concatenate([vals, vals[off]])
         return COO(torch.from_numpy(rows).to(dev),
                    torch.from_numpy(ccols).to(dev),
                    torch.from_numpy(vals).to(dev), self.shape,
                    host=(rows, ccols, vals))
+
+
+def _dedup_sums(keys: np.ndarray, vals: np.ndarray):
+    """Coordinate-summed (key, value) pairs in sorted key order."""
+    order = np.argsort(keys, kind="stable")
+    k, v = keys[order], vals[order].astype(np.float64)
+    uk, start = np.unique(k, return_index=True)
+    return uk, np.add.reduceat(v, start) if v.size else v
+
+
+def _symmetric_lower(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                     shape: Tuple[int, int]):
+    """Validate ``A == A^T`` (pattern and values, after summing duplicate
+    coordinates) and return the lower-triangle stream + dense diagonal.
+    Raises ``ValueError`` on a non-square or asymmetric input."""
+    m, n = shape
+    if m != n:
+        raise ValueError(
+            f"structure='symmetric' needs a square matrix, got {m}x{n}")
+    ka, va = _dedup_sums(rows * n + cols, vals)
+    kb, vb = _dedup_sums(cols * n + rows, vals)
+    # pattern must match exactly; summed duplicate values only to fp-sum
+    # reassociation tolerance (the two sides add duplicates in different
+    # orders)
+    scale = float(np.abs(va).max()) if va.size else 1.0
+    if ka.shape != kb.shape or not np.array_equal(ka, kb) \
+            or not np.allclose(va, vb, rtol=1e-6, atol=1e-9 * max(scale, 1.0)):
+        raise ValueError(
+            "structure='symmetric' requires A == A^T (pattern and values); "
+            "store the full matrix with structure='general' instead")
+    keep = rows >= cols                       # one triangle, diagonal kept
+    dtype = np.float32 if vals.size == 0 else vals.dtype
+    diag = np.zeros(m, dtype)
+    on_d = rows == cols
+    np.add.at(diag, rows[on_d], vals[on_d])
+    return rows[keep], cols[keep], vals[keep], diag
 
 
 def coo_to_sellcs(coo: COO, *, c: int = DEFAULT_C,
@@ -121,13 +167,15 @@ def coo_to_sellcs(coo: COO, *, c: int = DEFAULT_C,
     """Convert COO -> SELL-C-σ on the COO's device (host-side build).
 
     ``sigma`` is the row-sorting window in rows, rounded up to a multiple
-    of ``c``; ``None`` uses ``DEFAULT_SIGMA_SLICES * c``."""
+    of ``c``; ``None`` uses ``DEFAULT_SIGMA_SLICES * c``.
+
+    ``structure="symmetric"`` stores one triangle (``row >= col``) plus a
+    dense diagonal; the input must satisfy ``A == A^T`` exactly (pattern
+    and values) or a ``ValueError`` is raised."""
     m, n = coo.shape
     if c < 1:
         raise ValueError(f"slice height C must be >= 1, got {c}")
-    if structure == "symmetric":
-        raise NotImplementedError(SYMMETRIC_SLICE)
-    if structure != "general":
+    if structure not in ("general", "symmetric"):
         raise ValueError(f"structure must be 'general' or 'symmetric', "
                          f"got {structure!r}")
     if sigma is None:
@@ -138,6 +186,10 @@ def coo_to_sellcs(coo: COO, *, c: int = DEFAULT_C,
     rows = np.asarray(r_h, np.int64)
     cols = np.asarray(c_h, np.int64)
     vals = np.asarray(v_h)
+    diag = None
+    if structure == "symmetric":
+        rows, cols, vals, diag = _symmetric_lower(rows, cols, vals,
+                                                  coo.shape)
 
     row_len_orig = (np.bincount(rows, minlength=m).astype(np.int64)
                     if m else np.zeros(0, np.int64))
@@ -185,5 +237,7 @@ def coo_to_sellcs(coo: COO, *, c: int = DEFAULT_C,
         data=torch.from_numpy(data).to(dev),
         cols=torch.from_numpy(col_arr).to(dev),
         slice_ptr=t(slice_ptr), slice_of=t(slice_of), row_perm=t(row_perm),
-        row_len=t(row_len), diag=None, shape=tuple(coo.shape), chunk=int(c),
+        row_len=t(row_len),
+        diag=None if diag is None else torch.from_numpy(diag).to(dev),
+        shape=tuple(coo.shape), chunk=int(c),
         sigma=int(sigma), nnz=int(rows.size), structure=structure)

@@ -1,11 +1,13 @@
-"""repro_torch CUDA kernels against their plain PyTorch versions, on the
-card. Every test here carries the ``cuda`` marker and skips without a CUDA
-device. The file imports no JAX, so it runs on a machine with a card:
+"""repro_torch CUDA kernels (K1, K2, K3, K4 and the carry step) against
+their plain PyTorch versions, on the card. Every test here carries the
+``cuda`` marker and skips without a CUDA device. The file imports no JAX,
+so it runs on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: ``max|kernel - plain| <= 1e-4 * max(1, max|plain|)`` (float32
-sums in another order), as in ``chip_smoke.py``.
+sums in another order; K3's atomic adds in an order that varies from run
+to run), as in ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from repro_torch.kernels import ops as TOPS
 from repro_torch.spmm import kernels as TK
 from repro_torch.spmm import (coo_to_sellcs, csr_spmm, sellcs_spmm, spmm,
                               spmm_ref)
+from repro_torch.spmm.reference import sellcs_slot_x
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +71,67 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     assert TK.sellcs_slots.launches == before
     sellcs_spmm(sc, X)
     assert TK.sellcs_slots.launches == before + 1
+
+
+@pytest.mark.parametrize("k", [1, 8, 33])
+@pytest.mark.parametrize("name", ["mawi_like", "road_like"])
+def test_transpose_kernel_matches_plain(cuda, name, k):
+    """K3 against its plain version on the same slot-ordered X, and the
+    whole A^T X multiply (gather + K3) against the oracle. Atomic adds:
+    the order, and so the last bits, vary from run to run."""
+    coo = _matrix(cuda, name)
+    sc = coo_to_sellcs(coo)
+    m, n = coo.shape
+    X = torch.randn((m, k), device=cuda)
+    xs = sellcs_slot_x(sc.row_perm, X, m)
+    args = (sc.data, sc.cols, sc.slice_of, sc.slice_ptr, sc.row_len, xs)
+    got = TK.sellcs_slots_t(*args, n_out=n, chunk=sc.chunk)
+    assert got.shape == (n, k) and got.dtype == torch.float32
+    _close(got, TK.sellcs_slots_t_plain(*args, n_out=n, chunk=sc.chunk))
+    _close(sellcs_spmm(sc, X, op="T"), spmm_ref(coo, X, op="T"))
+    _close(spmm(sc, X[:, 0], op="T"), spmm_ref(coo, X[:, 0], op="T"))
+
+
+def test_symmetric_combine_matches_oracle(cuda):
+    """One-triangle storage: K1 + unpermute + K3 - diag·X equals the
+    oracle of the full matrix for both ops."""
+    r, c, v, shape = TM.test_suite(0.05)["road_like"].make()
+    full = TM.as_coo((np.concatenate([r, c]), np.concatenate([c, r]),
+                      np.concatenate([v, v]), shape), device=cuda)
+    sym = coo_to_sellcs(full, structure="symmetric")
+    X = torch.randn((shape[0], 8), device=cuda)
+    want = spmm_ref(full, X)
+    for op in ("N", "T"):
+        _close(sellcs_spmm(sym, X, op=op), want)
+        _close(sellcs_spmm(sym, X, op=op, plain=True), want)
+
+
+def test_cuda_tensor_launches_transpose_kernel(cuda):
+    """A CUDA tensor launches K3 (the counter rises; there is no plain
+    fallback), through the dispatcher, the operator's transpose and the
+    backward pass of sparse_matmul; plain=True launches nothing."""
+    from repro_torch.core import PlanSpec
+    from repro_torch.spmm import SparseOperator, sparse_matmul
+    coo = _matrix(cuda, "hhh_like")
+    sc = coo_to_sellcs(coo)
+    X = torch.randn((coo.shape[0], 4), device=cuda)
+    before = TK.sellcs_slots_t.launches
+    sellcs_spmm(sc, X, op="T", plain=True)
+    assert TK.sellcs_slots_t.launches == before
+    spmm(sc, X, op="T")
+    assert TK.sellcs_slots_t.launches == before + 1
+    op = SparseOperator.from_coo(coo, PlanSpec(num_devices=1,
+                                               algorithm="sellcs"))
+    assert op.plan.impl == "kernel"
+    op.T @ X
+    assert TK.sellcs_slots_t.launches == before + 2
+    x = torch.randn((coo.shape[1], 4), device=cuda, requires_grad=True)
+    k1 = TK.sellcs_slots.launches
+    (g,) = torch.autograd.grad(sparse_matmul(op, x).sum(), x)
+    assert TK.sellcs_slots.launches == k1 + 1
+    assert TK.sellcs_slots_t.launches == before + 3
+    _close(g, spmm_ref(coo, torch.ones((coo.shape[0], 4), device=cuda),
+                       op="T"))
 
 
 def test_wrappers_validate_operands(cuda):

@@ -204,7 +204,8 @@ def test_unported_formats_raise_naming_their_slice():
     _, tc = _pair("hhh_like")
     with pytest.raises(NotImplementedError, match="blocked"):
         TC.convert(tc, "bcohc")
-    with pytest.raises(NotImplementedError, match="transpose"):
+    # one-triangle storage is ported; an asymmetric input is refused
+    with pytest.raises(ValueError, match="A == A"):
         TSC.coo_to_sellcs(tc, structure="symmetric")
     with pytest.raises(ValueError):
         TSC.coo_to_sellcs(tc, c=0)

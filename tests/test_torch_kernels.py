@@ -196,8 +196,18 @@ def test_spmm_dispatch_and_dtype_rule(fmt):
     else:
         with pytest.raises(TypeError):
             spmm(mat, Xt, impl="plain")
-    with pytest.raises(NotImplementedError, match="transpose"):
-        spmm(mat, Xt, impl="plain", op="T")
+    # op='T': K3's plain version on SELL-C-σ; no transpose kernel for the
+    # other formats, as under the reference's impl='pallas'
+    Xm = torch.from_numpy(_x(tc.shape[0], 8, 5))
+    if fmt == "sellcs":
+        want_t = np.asarray(JS.spmm_ref(jc, jnp.asarray(Xm.numpy()),
+                                        op="T"))
+        np.testing.assert_allclose(spmm(mat, Xm, impl="plain",
+                                        op="T").numpy(), want_t,
+                                   rtol=RTOL, atol=ATOL)
+    else:
+        with pytest.raises(TypeError, match="transpose"):
+            spmm(mat, Xm, impl="plain", op="T")
     with pytest.raises(ValueError):
         spmm(mat, Xt, impl="pallas")
 

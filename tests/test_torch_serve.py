@@ -96,18 +96,12 @@ def test_operator_unported_surfaces_raise_naming_their_slice():
     op = SparseOperator.from_coo(tc, PlanSpec(num_devices=1,
                                               algorithm="sellcs"),
                                  impl="plain")
-    x = torch.zeros(tc.shape[0])
-    with pytest.raises(NotImplementedError, match="transpose"):
-        op.rmatmul(x)
-    with pytest.raises(NotImplementedError, match="transpose"):
-        op.T
     with pytest.raises(NotImplementedError, match="multi-device"):
         op.realize(PlanSpec(num_devices=4))
     with pytest.raises(NotImplementedError, match="multi-device"):
         op.shrink_to([0])
-    from repro_torch.spmm.operator import sparse_matmul
-    with pytest.raises(NotImplementedError, match="autograd"):
-        sparse_matmul(op, x)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        SparseOperator.from_coo(tc, PlanSpec(num_devices=2), impl="plain")
 
 
 def test_batcher_matches_reference_batcher():
