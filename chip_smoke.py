@@ -8,9 +8,11 @@ point (``repro_torch.launch.serve``) at the real size of ``hhh_like
 --scale 64`` (m = n = 1,048,576, 12.6 M nonzeros, k = 32 flushes), drives
 the transpose path (one-triangle symmetric storage, forward + adjoint
 GMRES through ``repro_torch.examples.gmres``, gradient steps through the
-differentiable ``sparse_matmul``) at 1,048,576 rows, shows through the
-wrappers' launch counters that each path went through its kernels, and
-prints one JSON line per kernel table and a final status line:
+differentiable ``sparse_matmul``) at 1,048,576 rows, drives the paper's
+blocked formats through the tiled kernels (every blocked visit order at
+road_like --scale 8), shows through the wrappers' launch counters that
+each path went through its kernels, and prints one JSON line per kernel
+table and a final status line:
 
     python3 chip_smoke.py            # full run, one card
     python3 chip_smoke.py --quick    # same phases at small scales
@@ -37,23 +39,46 @@ Phases:
      ``examples/train_lm.py`` (hhh_like --scale 64, values 1/in-degree,
      d_feat = 32, d_out = 16) through ``sparse_matmul``, whose backward
      is K3; the first step's gradient against autograd through the torch
-     oracle ``spmm_ref(coo, ·)``.
+     oracle ``spmm_ref(coo, ·)``;
+  8. the blocked formats (road_like --scale 8, 1,048,576 rows): for each
+     of the eight blocked orders, conversion to the tiled format (seconds,
+     tiles, fill, x/y window switches) and one multiply through
+     ``core.spmv`` (K5) against K5's plain version and the triplet oracle,
+     timed; on csb and bcohch, ``spmm`` (K6, ``choose_k_tile``'s column
+     tile and a narrower one) and ``kernels.ops.bsr_spmm`` (K7) at
+     k in {8, 32, 33}; mawi_like --scale 4 with K5 at k = 1 and K6/K7 at
+     k = 32; ``serve --algorithm csb`` (a blocked plan, multiplied through
+     its oracle) with every answer checked against the triplet oracle;
+     ``repro_torch.examples.quickstart`` at road_like --scale 8; and
+     hhh_like --scale 64, whose 12.5 M tiles the tiled conversion must
+     refuse with ``MemoryError`` (its 8 GiB density rule).
 
 Bound: ``bound_ms`` is the larger of the bytes the SpMM function needs
 (CSR values and columns per nonzero, one row offset per row, X read once,
 Y written once; ``spmm_bytes``) over the data-sheet HBM rate and
-2 * nnz * k flops over the float32 peak. The stdout ends with a ``rows``
+2 * nnz * k flops over the float32 peak. K5–K7 also get the bound of
+their format's stream, ``stream_bound_ms``: the tile bytes plus 8 B per
+tile, X and Y over the HBM rate, or the dense tile math (2 * 1024 * k
+flops per tile) over the float32 peak. K8 (not ported yet) gets its bound
+printed beside K1's: K1's bytes plus one int32 of its column map per
+column of X. The stdout ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
 latency, batcher phases and conversion times; the symmetric, GMRES and
 autograd phases), the card line, the ``kernels`` JSON line and the status
 line. K3's ``launches`` there is the sum over the GMRES and autograd
-phases, each counted from zero.
+phases, each counted from zero; K5's, K6's and K7's are the sums over
+phase 8's multiplies through the entry points (``core.spmv``,
+``spmm``, ``kernels.ops.bsr_spmm``, the quickstart), each window counted
+from zero, not the launches made to compare or time them.
 
 Tolerance: a kernel agrees with its plain version when
-``max|kernel - plain| <= 1e-4 * max(1, max|plain|)`` — float32 sums taken
+``max|kernel - plain| <= 1e-4 * max(1, max|plain|)`` (and phase 8's
+multiplies agree with the triplet oracle computed in float64 by the same
+rule: a float32 oracle sums mawi_like's 262,144-entry row with an error
+of that order itself) — float32 sums taken
 in another order (K1 keeps the reference's order per slot but fuses the
-multiply-add; K2/K4 sum each row in shares and carries; K3 adds with
-atomics in an order that varies from run to run). Exits non-zero on any
+multiply-add; K2/K4 sum each row in shares and carries; K3, K5, K6 and
+K7 add with atomics in an order that varies from run to run). Exits non-zero on any
 failure; there is no CPU fallback.
 """
 from __future__ import annotations
@@ -119,11 +144,13 @@ def tol_of(ref) -> float:
 
 
 def counters():
+    from repro_torch.kernels import bsr_spmv as BS
     from repro_torch.kernels import merge_spmv as MS
     from repro_torch.spmm import kernels as SK
     return {"K1": SK.sellcs_slots, "K2": SK._merge_spmm_partials,
             "K3": SK.sellcs_slots_t, "K4": MS.merge_spmv_partials,
-            "carry": MS.carry_out_fixup}
+            "carry": MS.carry_out_fixup, "K5": BS.bsr_spmv,
+            "K6": SK.tiled_spmm, "K7": BS.bsr_spmm}
 
 
 def reset_counts():
@@ -146,7 +173,15 @@ KERNEL_META = {
            "src/repro/kernels/merge_spmv.py:122"),
     "carry": ("merge_carry_fixup", "src/repro_torch/csrc/merge_spmm.cu",
               "src/repro/kernels/merge_spmv.py:40"),
+    "K5": ("bsr_spmv", "src/repro_torch/csrc/tiled_spmm.cu",
+           "src/repro/kernels/bsr_spmv.py:96"),
+    "K6": ("tiled_spmm", "src/repro_torch/csrc/tiled_spmm.cu",
+           "src/repro/spmm/kernels.py:147"),
+    "K7": ("bsr_spmm", "src/repro_torch/csrc/tiled_spmm.cu",
+           "src/repro/kernels/bsr_spmv.py:167"),
 }
+BLOCKED_ORDERS = ("csb", "csbh", "bcoh", "bcohc", "bcohch", "bcohchp",
+                  "mergeb", "mergebh")
 
 
 def spmm_bytes(nnz: int, m: int, n: int, k: int) -> int:
@@ -155,6 +190,17 @@ def spmm_bytes(nnz: int, m: int, n: int, k: int) -> int:
     once. Padding slots and the merge plan's per-item row ids are the
     port's overhead, not the function's."""
     return nnz * (4 + 4) + (m + 1) * 4 + n * k * 4 + m * k * 4
+
+
+def stream_bound_ms(ts, k: int) -> float:
+    """Least time for the tiled kernels' own stream: every tile read once
+    with its two indices, X read once, Y written once — or the dense tile
+    math at the float32 peak, whichever is larger."""
+    m, n = ts.shape
+    T = ts.num_tiles
+    nbytes = T * (ts.tiles[0].numel() * ts.tiles.element_size() + 8) \
+        + n * k * 4 + m * k * 4
+    return bound_ms(nbytes, 2.0 * T * ts.tiles[0].numel() * k)[0]
 
 
 def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
@@ -320,6 +366,15 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
                 table[kern] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                                "bound_ms": b, "bound_by": by,
                                "library_ms": lms}
+        if main and k == MAIN_K:
+            # K8 (not ported yet) is K1 with a column map read beside the
+            # stream: K1's bytes plus one int32 per column of X
+            b8, by8 = bound_ms(spmm_bytes(nnz, m, n, k) + 4 * n,
+                               2.0 * nnz * k)
+            table["K8_bound"] = {"bound_ms": b8, "bound_by": by8,
+                                 "matrix": name, "k": k}
+            print(f"[chip_smoke]   K8 (col_map gather, not ported) k={k} "
+                  f"bound_ms={b8:.4f} ({by8})", flush=True)
     del A_lib, At_lib, sc, plan, csr, coo
     torch.cuda.empty_cache()
 
@@ -551,6 +606,294 @@ def run_autograd(scale: float, steps: int) -> dict:
     return out
 
 
+def run_counted(fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after: (result, counts)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def tiled_rows(label: str, coo, ts, ks, kts, reps: int, A_lib,
+               launches: dict, table: dict, main: bool) -> list:
+    """K6 (per column tile in ``kts(k)``) and K7 at every k of ``ks`` on one
+    tile stream: the multiplies through ``spmm`` and ``ops.bsr_spmm``
+    counted, then each kernel against its plain version, timed beside
+    the library's CSR multiply and both bounds."""
+    import torch
+    from repro_torch.kernels import bsr_spmv as BS
+    from repro_torch.kernels import ops
+    from repro_torch.spmm import choose_k_tile, spmm, spmm_ref
+    from repro_torch.spmm import kernels as SK
+    m, n = coo.shape
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    for k in ks:
+        X = torch.randn((n, k), generator=gen, device="cuda")
+        (y6, y7), counts = run_counted(
+            lambda: (spmm(ts, X), ops.bsr_spmm(ts, X)))
+        for kern in ("K6", "K7"):
+            if counts[kern] != 1:
+                raise AssertionError(f"{kern} launched {counts[kern]} times "
+                                     f"for one multiply on {label} k={k}")
+            launches[kern] += counts[kern]
+        ref = spmm_ref(coo, X.double())
+        for kern, y in (("K6", y6), ("K7", y7)):
+            err = max_err(y, ref)
+            if err > tol_of(ref):
+                raise AssertionError(f"{kern} vs oracle on {label} k={k}: "
+                                     f"{err:.3g}")
+        lib_ms = cuda_ms(lambda: A_lib @ X, reps)
+        b, by = bound_ms(spmm_bytes(coo.nnz, m, n, k), 2.0 * coo.nnz * k)
+        sb = stream_bound_ms(ts, k)
+        kt0 = choose_k_tile(ts.shape, k, nnz=ts.nnz)
+        cases = [("K6", kt, (lambda kt=kt: SK.tiled_spmm(ts, X, k_tile=kt)),
+                  (lambda: SK.tiled_spmm_plain(ts, X)))
+                 for kt in kts(k, kt0)]
+        cases.append(("K7", k, lambda: BS.bsr_spmm(ts, X),
+                      lambda: BS.bsr_spmm_plain(ts, X)))
+        for kern, kt, kfn, pfn in cases:
+            yk, yp = kfn(), pfn()
+            torch.cuda.synchronize()
+            err, tol = max_err(yk, yp), tol_of(yp)
+            ms = cuda_ms(kfn, reps)
+            pms = cuda_ms(pfn, max(reps // 2, 1))
+            ok = err <= tol
+            print(f"[chip_smoke]   {label} {kern} k={k:<2} kt={kt:<2} "
+                  f"max_abs_err={err:.3g} tol={tol:.3g} "
+                  f"{'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} plain_ms="
+                  f"{pms:.4f} bound_ms={b:.4f} ({by}) stream_bound_ms="
+                  f"{sb:.4f} library_ms={lib_ms:.4f}", flush=True)
+            if not ok:
+                raise AssertionError(f"{kern} disagrees with its plain "
+                                     f"version on {label} k={k} kt={kt}: "
+                                     f"{err:.3g} > {tol:.3g}")
+            row = {"matrix": label, "k": k, "kernel": kern, "k_tile": kt,
+                   "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": pms,
+                   "bound_ms": b, "bound_by": by, "stream_bound_ms": sb,
+                   "library_ms": lib_ms}
+            out.append(row)
+            if main and k == MAIN_K and kern not in table:
+                table[kern] = row
+        del X, y6, y7, ref
+    return out
+
+
+def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
+                reps: int, table: dict) -> dict:
+    """Phase 8: the paper's blocked formats on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spmv
+    from repro_torch.core.convert import ALGORITHM_SPECS
+    from repro_torch.data import matrices
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import bsr_spmv as BS
+    from repro_torch.kernels import coo_to_tiled
+    from repro_torch.spmm import spmm_ref
+
+    launches = {"K5": 0, "K6": 0, "K7": 0}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    coo = matrices.as_coo(matrices.test_suite(scale_road)["road_like"].make(),
+                          device="cuda")
+    m, n = coo.shape
+    A_lib = torch.sparse_csr_tensor(*_csr_parts(coo), (m, n))
+    print(f"[chip_smoke] blocked road_like --scale {scale_road:g}: m={m} "
+          f"nnz={coo.nnz} (setup {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    x = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(
+        5), device="cuda")
+    ref1 = spmm_ref(coo, x.double())
+    lib1 = cuda_ms(lambda: A_lib @ x[:, None], reps)
+    b1, by1 = bound_ms(spmm_bytes(coo.nnz, m, n, 1), 2.0 * coo.nnz)
+
+    # every blocked visit order: conversion, window switches, one K5
+    orders = []
+    for algo in BLOCKED_ORDERS:
+        bands = 8 if ALGORITHM_SPECS[algo].scheduling == "static_rows" else 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = coo_to_tiled(coo, algo, num_bands=bands)
+        torch.cuda.synchronize()
+        conv_s = time.perf_counter() - t0
+        xsw, ysw = ts.window_switches()
+        y, counts = run_counted(lambda: spmv(ts, x))
+        if counts["K5"] != 1:
+            raise AssertionError(f"spmv on the {algo} tiles launched K5 "
+                                 f"{counts['K5']} times")
+        launches["K5"] += 1
+        err_ref = max_err(y, ref1)
+        if err_ref > tol_of(ref1):
+            raise AssertionError(f"K5 ({algo}) vs oracle: {err_ref:.3g}")
+        yp = BS.bsr_spmv_plain(ts, x)
+        err, tol = max_err(y, yp), tol_of(yp)
+        if err > tol:
+            raise AssertionError(f"K5 disagrees with its plain version on "
+                                 f"{algo}: {err:.3g} > {tol:.3g}")
+        ms = cuda_ms(lambda: BS.bsr_spmv(ts, x), reps)
+        pms = cuda_ms(lambda: BS.bsr_spmv_plain(ts, x), max(reps // 2, 1))
+        sb = stream_bound_ms(ts, 1)
+        row = {"matrix": "road_like", "scale": scale_road, "order": algo,
+               "num_bands": bands, "convert_s": conv_s,
+               "tiles": ts.num_tiles, "fill": ts.fill_ratio,
+               "x_switches": xsw, "y_switches": ysw, "kernel": "K5",
+               "max_abs_err": err, "tol": tol, "oracle_err": err_ref,
+               "ms": ms, "plain_ms": pms, "bound_ms": b1, "bound_by": by1,
+               "stream_bound_ms": sb, "library_ms": lib1}
+        orders.append(row)
+        if "K5" not in table:
+            table["K5"] = row
+        print(f"[chip_smoke]   {algo:<8} convert {conv_s:.2f} s, tiles "
+              f"{ts.num_tiles}, fill {ts.fill_ratio:.4f}, switches x={xsw} "
+              f"y={ysw}; K5 {ms:.4f} ms (plain {pms:.4f}, bound {b1:.4f}, "
+              f"stream {sb:.4f}, library {lib1:.4f}) max_abs_err {err:.3g}",
+              flush=True)
+        del ts, y, yp
+        torch.cuda.empty_cache()
+
+    # K6 and K7 on a row-ordered and a Hilbert-ordered stream
+    spmm_rows = []
+    for algo in ("csb", "bcohch"):
+        bands = 8 if ALGORITHM_SPECS[algo].scheduling == "static_rows" else 0
+        ts = coo_to_tiled(coo, algo, num_bands=bands)
+        spmm_rows += tiled_rows(
+            f"road_like/{algo}", coo, ts, (8, MAIN_K, MAIN_K + 1),
+            lambda k, kt0: [kt0] + ([kt0 // 4] if kt0 >= 4 else []), reps,
+            A_lib,
+            launches, table, main=(algo == "csb"))
+        del ts
+        torch.cuda.empty_cache()
+    del A_lib
+    torch.cuda.empty_cache()
+
+    # mawi_like: the dense row spread over thousands of tiles of one row
+    t0 = time.perf_counter()
+    mawi = matrices.as_coo(
+        matrices.test_suite(scale_mawi)["mawi_like"].make(), device="cuda")
+    ts = coo_to_tiled(mawi, "csb")
+    mm, mn = mawi.shape
+    M_lib = torch.sparse_csr_tensor(*_csr_parts(mawi), (mm, mn))
+    print(f"[chip_smoke] blocked mawi_like --scale {scale_mawi:g}: m={mm} "
+          f"nnz={mawi.nnz} tiles={ts.num_tiles} fill={ts.fill_ratio:.4f} "
+          f"(setup {time.perf_counter() - t0:.1f} s)", flush=True)
+    xm = torch.randn(mn, generator=torch.Generator(device="cuda").manual_seed(
+        6), device="cuda")
+    ym, counts = run_counted(lambda: spmv(ts, xm))
+    if counts["K5"] != 1:
+        raise AssertionError(f"spmv on mawi_like launched K5 "
+                             f"{counts['K5']} times")
+    launches["K5"] += 1
+    refm = spmm_ref(mawi, xm.double())
+    ypm = BS.bsr_spmv_plain(ts, xm)
+    errm, err_refm = max_err(ym, ypm), max_err(ym, refm)
+    if errm > tol_of(ypm):
+        raise AssertionError(f"K5 disagrees with its plain version on "
+                             f"mawi_like: {errm:.3g} > {tol_of(ypm):.3g}")
+    if err_refm > tol_of(refm):
+        raise AssertionError(f"K5 vs oracle on mawi_like: {err_refm:.3g} > "
+                             f"{tol_of(refm):.3g}")
+    bm, bym = bound_ms(spmm_bytes(mawi.nnz, mm, mn, 1), 2.0 * mawi.nnz)
+    mawi_k5 = {"matrix": "mawi_like", "scale": scale_mawi, "kernel": "K5",
+               "k": 1, "max_abs_err": errm, "tol": tol_of(ypm),
+               "oracle_err": err_refm,
+               "ms": cuda_ms(lambda: BS.bsr_spmv(ts, xm), reps),
+               "plain_ms": cuda_ms(lambda: BS.bsr_spmv_plain(ts, xm), 1),
+               "bound_ms": bm, "bound_by": bym,
+               "stream_bound_ms": stream_bound_ms(ts, 1),
+               "library_ms": cuda_ms(lambda: M_lib @ xm[:, None], reps)}
+    print(f"[chip_smoke]   mawi_like K5 {mawi_k5['ms']:.4f} ms (plain "
+          f"{mawi_k5['plain_ms']:.4f}, bound {bm:.4f}, stream "
+          f"{mawi_k5['stream_bound_ms']:.4f}, library "
+          f"{mawi_k5['library_ms']:.4f}) max_abs_err {errm:.3g}", flush=True)
+    spmm_rows.append(mawi_k5)
+    spmm_rows += tiled_rows("mawi_like/csb", mawi, ts, (MAIN_K,),
+                            lambda k, kt0: [kt0], reps, M_lib, launches,
+                            table, main=False)
+    del ts, mawi, M_lib, ym, ypm, refm
+    torch.cuda.empty_cache()
+
+    # the operator path: a pinned blocked plan served through its oracle
+    with tempfile.TemporaryDirectory() as tmp:
+        res, _, doc = run_serve(
+            ["--mode", "spmv", "--matrix", "road_like", "--scale",
+             f"{scale_road:g}", "--requests", "16", "--max-batch", "8",
+             "--reps", "1", "--algorithm", "csb"],
+            os.path.join(tmp, "blocked.json"))
+    op = res["op"]
+    if op.plan.label != "csb" or op.plan.impl != "ref":
+        raise AssertionError(f"serve --algorithm csb realized "
+                             f"{op.plan.label}/{op.plan.impl}")
+    X = torch.stack(res["xs"], dim=1)
+    Y = torch.stack([res["answers"][r] for r in res["rids"]], dim=1)
+    ref = spmm_ref(coo, X.double())
+    if Y.shape != ref.shape or not torch.isfinite(Y).all():
+        raise AssertionError(f"blocked serve answers malformed: "
+                             f"{tuple(Y.shape)}")
+    err_serve = max_err(Y, ref)
+    if err_serve > tol_of(ref):
+        raise AssertionError(f"blocked serve vs oracle: {err_serve:.3g}")
+    serve_row = serve_summary("blocked", res, doc, {})
+    serve_row["max_abs_err"] = err_serve
+    print(f"[chip_smoke] serve --algorithm csb: {len(res['rids'])} answers "
+          f"vs oracle max_abs_err {err_serve:.3g}; batched "
+          f"{res['t_batched'] * 1e3:.2f} ms, sequential "
+          f"{res['t_seq'] * 1e3:.2f} ms, plan build {res['build_s']:.2f} s",
+          flush=True)
+    del res, op, X, Y, ref, coo
+    torch.cuda.empty_cache()
+
+    # a density the tiled format refuses: the reference's rule (f32 tiles
+    # over 8 GiB raise MemoryError, checked before any tile is allocated;
+    # the limit scales with --quick's smaller matrix)
+    t0 = time.perf_counter()
+    dense = matrices.as_coo(
+        matrices.test_suite(scale_dense)["hhh_like"].make(), device="cpu")
+    try:
+        coo_to_tiled(dense, "csb",
+                     max_bytes=int(8 * 2 ** 30 * scale_dense / 64.0))
+    except MemoryError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"coo_to_tiled accepted hhh_like --scale "
+                             f"{scale_dense:g}")
+    print(f"[chip_smoke] hhh_like --scale {scale_dense:g} tiled: refused "
+          f"({refused}; {time.perf_counter() - t0:.1f} s)", flush=True)
+    del dense
+
+    # the slice's entry point
+    t0 = time.perf_counter()
+    qs, counts = run_counted(lambda: quickstart.main(
+        ["--matrix", "road_like", "--scale", f"{scale_road:g}",
+         "--device", "cuda"]))
+    launches["K5"] += counts["K5"]
+    quick_row = {"seconds": time.perf_counter() - t0, "k5_err": qs["k5_err"],
+                 "tol": qs["tol"], "errors": qs["errors"],
+                 "convert_s": qs["convert_s"], "tiles": qs["tiles"],
+                 "launches": counts}
+    print(f"[chip_smoke] quickstart road_like --scale {scale_road:g}: "
+          f"launches {counts}; {quick_row['seconds']:.1f} s", flush=True)
+    for kern in ("K5", "K6", "K7"):
+        if launches[kern] <= 0:
+            raise AssertionError(f"the blocked path never launched {kern}")
+    secs = time.perf_counter() - t_phase
+    print(f"[chip_smoke] blocked phase {secs:.1f} s; launches {launches}",
+          flush=True)
+    return {"orders": orders, "spmm": spmm_rows, "serve": serve_row,
+            "quickstart": quick_row, "dense_refused": refused,
+            "launches": launches, "seconds": secs}
+
+
+def _csr_parts(coo):
+    """(crow, col, val) of the library's CSR of ``coo`` (a baseline only)."""
+    from repro_torch.core import coo_to_csr
+    csr = coo_to_csr(coo)
+    return csr.row_ptr.long(), csr.col_ind.long(), csr.data
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -638,26 +981,33 @@ def main(argv=None) -> int:
     gmres_row = run_gmres(14 if args.quick else 20)
     grad_row = run_autograd(64.0 / div, 5)
 
+    # phase 8: the blocked formats
+    blocked_row = run_blocked(8.0 / div, 4.0 / div, 64.0 / div, reps, table)
+
     launches = {"K1": counts_a["K1"], "K2": counts_b["K2"],
                 "K3": gmres_row["launches"]["K3"]
                 + grad_row["launches"]["K3"],
-                "K4": counts_b["K4"], "carry": counts_b["carry"]}
+                "K4": counts_b["K4"], "carry": counts_b["carry"],
+                **blocked_row["launches"]}
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "carry"):
+    for key in ("K1", "K2", "K3", "K4", "carry", "K5", "K6", "K7"):
         nm, src, rep = KERNEL_META[key]
         row = table[key]
-        kernels.append({"name": nm, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[key],
-                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+        entry = {"name": nm, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": launches[key],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"]}
+        if "stream_bound_ms" in row:
+            entry["stream_bound_ms"] = row["stream_bound_ms"]
+        kernels.append(entry)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"rows": shape_rows, "serve": serve_rows,
                       "symmetric": sym_row, "gmres": gmres_row,
-                      "autograd": grad_row}))
+                      "autograd": grad_row, "blocked": blocked_row,
+                      "k8_bound": table["K8_bound"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,34 @@
-"""repro_torch.core — storage formats, the flat conversions, merge-path
-partitioning, the ``spmv`` dispatch and the §7 algorithm selector."""
-from .formats import COO, CSR
+"""repro_torch.core — storage formats, their conversions, space-filling
+curves, merge-path partitioning, the ``spmv`` dispatch and the §7
+algorithm selector."""
+from .formats import BICRS, COO, CSR, ICRS, BlockedSparse
 from .device import resolve_device
-from .convert import (ALGORITHM_SPECS, AlgorithmSpec, coo_canonicalize_np,
-                      coo_to_csr, convert, to_coo)
-from .mergepath import merge_path_partition_np
+from .convert import (ALGORITHM_SPECS, AlgorithmSpec, block_size_for,
+                      coo_canonicalize_np, coo_to_bicrs, coo_to_blocked,
+                      coo_to_csr, coo_to_icrs, convert, to_coo)
+from .curves import (curve_key, hilbert_decode, hilbert_key, morton_decode,
+                     morton_key)
+from .mergepath import balanced_row_bands, merge_path_partition_np
 from .selector import (CHUNK_CANDIDATES, GATHER_CANDIDATES, SCHEDULES,
                        DistributedChoice, MachineSpec, MatrixStats, PlanSpec,
                        amortized_cost, break_even_spmvs, matrix_stats,
                        mesh_factorizations, select, select_algorithm,
                        select_distributed, spmm_cost_scale)
-from .spmv import spmv, spmv_coo, spmv_csr
+from .spmv import (spmv, spmv_blocked, spmv_coo, spmv_csr, spmv_dense_oracle,
+                   spmv_incremental)
 
 __all__ = [
-    "COO", "CSR", "resolve_device", "ALGORITHM_SPECS", "AlgorithmSpec",
-    "coo_canonicalize_np", "coo_to_csr", "convert", "to_coo",
-    "merge_path_partition_np",
+    "COO", "CSR", "ICRS", "BICRS", "BlockedSparse", "resolve_device",
+    "ALGORITHM_SPECS", "AlgorithmSpec", "block_size_for",
+    "coo_canonicalize_np", "coo_to_csr", "coo_to_icrs", "coo_to_bicrs",
+    "coo_to_blocked", "convert", "to_coo",
+    "curve_key", "hilbert_key", "hilbert_decode", "morton_key",
+    "morton_decode", "balanced_row_bands", "merge_path_partition_np",
     "CHUNK_CANDIDATES", "GATHER_CANDIDATES", "SCHEDULES",
     "DistributedChoice", "MachineSpec", "MatrixStats", "PlanSpec",
     "amortized_cost", "break_even_spmvs", "matrix_stats",
     "mesh_factorizations", "select", "select_algorithm",
     "select_distributed", "spmm_cost_scale",
-    "spmv", "spmv_coo", "spmv_csr",
+    "spmv", "spmv_coo", "spmv_csr", "spmv_incremental", "spmv_blocked",
+    "spmv_dense_oracle",
 ]

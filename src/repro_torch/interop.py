@@ -10,6 +10,12 @@ objects from it on ``device``. Nothing here imports JAX.
 * :func:`sellcs_from_arrays` {data, cols, slice_ptr, slice_of, row_perm,
   row_len, shape, chunk, sigma, nnz[, diag, structure]}
 * :func:`merge_plan_from_arrays` {cols, vals, seg, row_starts, r_width}
+* :func:`tiled_from_arrays`  {tiles, tile_rows, tile_cols, shape, beta,
+  order, nnz} (f32 or bf16 tiles)
+* :func:`blocked_from_arrays` {block_rows, block_cols, block_ptr, packed,
+  data, grid_ptr, blk_col_inc, blk_row_jump, blk_row_ptr, shape, beta,
+  grid, block_storage, block_order, in_block_format, in_block_order,
+  row_bands}
 """
 from __future__ import annotations
 
@@ -19,8 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.core.formats import COO, CSR
+from repro_torch.core.formats import COO, CSR, BlockedSparse
 from repro_torch.kernels.merge_spmv import MergePlan
+from repro_torch.kernels.tiling import TiledSparse
 from repro_torch.spmm.sellcs import SellCS
 
 
@@ -86,3 +93,45 @@ def merge_plan_from_arrays(d: Mapping, device: DeviceLike = None
     return MergePlan(_t(d["cols"], dev, np.int32), _t(d["vals"], dev),
                      _t(seg, dev), _t(d["row_starts"], dev, np.int32),
                      _t(span_lengths(seg, d["row_starts"]), dev), int(d["r_width"]))
+
+
+def _float_t(a, dev) -> torch.Tensor:
+    """A float array as a tensor; numpy's bfloat16 (the ml_dtypes type JAX
+    hands out) crosses as its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return _t(a.view(np.uint16), dev).view(torch.bfloat16)
+    return _t(a, dev)
+
+
+def tiled_from_arrays(d: Mapping, device: DeviceLike = None) -> TiledSparse:
+    dev = resolve_device(device)
+    return TiledSparse(
+        tiles=_float_t(d["tiles"], dev),
+        tile_rows=_t(d["tile_rows"], dev, np.int32),
+        tile_cols=_t(d["tile_cols"], dev, np.int32),
+        shape=tuple(int(s) for s in d["shape"]), beta=int(d["beta"]),
+        order=str(d["order"]), nnz=int(d["nnz"]))
+
+
+def blocked_from_arrays(d: Mapping, device: DeviceLike = None
+                        ) -> BlockedSparse:
+    dev = resolve_device(device)
+    packed = np.asarray(d["packed"], np.uint32).view(np.int32)
+    return BlockedSparse(
+        block_rows=_t(d["block_rows"], dev, np.int32),
+        block_cols=_t(d["block_cols"], dev, np.int32),
+        block_ptr=_t(d["block_ptr"], dev, np.int32),
+        packed=_t(packed, dev).view(torch.uint32),
+        data=_t(d["data"], dev),
+        grid_ptr=_t(d["grid_ptr"], dev, np.int32),
+        blk_col_inc=_t(d["blk_col_inc"], dev, np.int32),
+        blk_row_jump=_t(d["blk_row_jump"], dev, np.int32),
+        blk_row_ptr=_t(d["blk_row_ptr"], dev, np.int32),
+        shape=tuple(int(s) for s in d["shape"]), beta=int(d["beta"]),
+        grid=tuple(int(g) for g in d["grid"]),
+        block_storage=str(d["block_storage"]),
+        block_order=str(d["block_order"]),
+        in_block_format=str(d["in_block_format"]),
+        in_block_order=str(d["in_block_order"]),
+        row_bands=tuple(int(b) for b in d.get("row_bands", ())))

@@ -30,6 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
     "sellcs": "sellcs_spmm.cu",      # K1 and K3
     "merge": "merge_spmm.cu",        # K2, K4 and the carry step
+    "tiled": "tiled_spmm.cu",        # K5, K6 and K7
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,6 +49,9 @@ SIGNATURES = {
     "merge_spmv_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,
                                              _P, _I, _I, _P]),
     "merge_carry_fixup_launch": ("merge", [_P, _P, _P, _I, _I, _P]),
+    "tiled_spmv_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _I, _I, _P]),
+    "tiled_spmm_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _P]),
 }
 
 _LOCK = threading.Lock()

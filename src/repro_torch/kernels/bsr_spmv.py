@@ -1,0 +1,163 @@
+"""Tiled SpMV (K5) and multi-RHS SpMM (K7) over ``TiledSparse``.
+
+* :func:`bsr_spmv` — K5, replaces ``repro.kernels.bsr_spmv.bsr_spmv`` /
+  ``_kernel``: ``y[r*8 : +8] += tile @ x[c*128 : +128]`` per stored tile.
+* :func:`bsr_spmm` — K7, replaces ``repro.kernels.bsr_spmv.bsr_spmm`` /
+  ``_kernel_spmm``: the same for X [n, R], the whole R in one block.
+
+Both are CUDA C++ in ``repro_torch/csrc/tiled_spmm.cu`` (see its notes for
+the bound and the design); K6, the k-tiled form behind ``spmm()``, is
+``repro_torch.spmm.kernels.tiled_spmm`` and launches the same entry point
+as K7 with a narrower column tile. As in the Pallas kernels, x is rounded
+to the tile dtype before the product, products accumulate in float32 and
+the result is float32. Each wrapper runs its plain PyTorch version (the
+``*_plain`` functions) only for CPU tensors; a CUDA tensor launches the
+kernel or raises. Launches are counted in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _lib
+from .tiling import TILE_C, TILE_R, TiledSparse
+
+# tile dtype -> the code the C entry points take
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# plain-version work is chunked over tiles so its [t, 128, k] gather and
+# f32 tile copy stay below this many elements
+_PLAIN_CHUNK_ELEMS = 1 << 25
+
+
+def tiled_products_plain(tiles: torch.Tensor, tile_rows: torch.Tensor,
+                         tile_cols: torch.Tensor, x2: torch.Tensor,
+                         shape: Tuple[int, int]) -> torch.Tensor:
+    """The function K5, K6 and K7 compute, for X ``x2`` [n, k]: X rounded
+    to the tile dtype, each tile's (8, 128) @ (128, k) product in float32,
+    added into its 8 rows -> f32 [m, k]."""
+    m, n = shape
+    mp = -(-m // TILE_R) * TILE_R
+    np_ = -(-n // TILE_C) * TILE_C
+    k = int(x2.shape[1])
+    dev = x2.device
+    x_pad = torch.zeros((np_, k), dtype=torch.float32, device=dev)
+    x_pad[:n] = x2.to(tiles.dtype).to(torch.float32)
+    xv = x_pad.view(np_ // TILE_C, TILE_C, k)
+    y = torch.zeros((mp // TILE_R, TILE_R, k), dtype=torch.float32,
+                    device=dev)
+    T = int(tiles.shape[0])
+    step = max(_PLAIN_CHUNK_ELEMS // (TILE_C * k + TILE_R * TILE_C), 1)
+    for t0 in range(0, T, step):
+        sl = slice(t0, min(t0 + step, T))
+        contrib = torch.einsum("trc,tck->trk", tiles[sl].to(torch.float32),
+                               xv[tile_cols[sl].long()])
+        y.index_add_(0, tile_rows[sl].long(), contrib)
+    return y.view(mp, k)[:m]
+
+
+def bsr_spmv_plain(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: x [n] -> f32 [m]."""
+    return tiled_products_plain(ts.tiles, ts.tile_rows, ts.tile_cols,
+                                x[:, None], ts.shape)[:, 0]
+
+
+def bsr_spmm_plain(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7: X [n, R] -> f32 [m, R]."""
+    return tiled_products_plain(ts.tiles, ts.tile_rows, ts.tile_cols, x,
+                                ts.shape)
+
+
+def _check_tiled(ts: TiledSparse) -> int:
+    """Validate the tile stream before its pointers go to C; returns the
+    tile dtype code."""
+    code = _DTYPE_CODE.get(ts.tiles.dtype)
+    if code is None:
+        raise TypeError(f"tiles must be one of {tuple(_DTYPE_CODE)}, got "
+                        f"{ts.tiles.dtype}")
+    _lib.require(ts.tiles, "tiles", ts.tiles.dtype, 3)
+    _lib.require(ts.tile_rows, "tile_rows", torch.int32, 1)
+    _lib.require(ts.tile_cols, "tile_cols", torch.int32, 1)
+    T = ts.num_tiles
+    if ts.tiles.shape[1:] != (TILE_R, TILE_C):
+        raise ValueError(f"tiles must be [T, {TILE_R}, {TILE_C}], got "
+                         f"{tuple(ts.tiles.shape)}")
+    if ts.tile_rows.shape[0] != T or ts.tile_cols.shape[0] != T:
+        raise ValueError("tile_rows / tile_cols must have one entry per "
+                         "tile")
+    if ts.tiles.data_ptr() % 16:
+        raise ValueError("tiles must be 16-byte aligned")
+    return code
+
+
+def _operand(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``x`` as a contiguous, 16-byte aligned float32 CUDA tensor."""
+    x = x.to(torch.float32).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    _lib.require(x, "x", torch.float32, ndim)
+    return x
+
+
+def tiled_spmm_launch(ts: TiledSparse, x: torch.Tensor, kt: int
+                      ) -> torch.Tensor:
+    """Launch the tiled SpMM entry point for X [n, k] with column tile
+    ``kt`` -> f32 [m, k]. Counts nothing: K6 and K7 count their own
+    launches."""
+    code = _check_tiled(ts)
+    x = _operand(x, 2)
+    m, n = ts.shape
+    mp, _ = ts.padded_shape()
+    k = int(x.shape[1])
+    if x.shape[0] != n:
+        raise ValueError(f"X must be [{n}, k], got {tuple(x.shape)}")
+    if not 1 <= kt <= k:
+        raise ValueError(f"k_tile must be in [1, {k}], got {kt}")
+    y = torch.zeros((mp, k), dtype=torch.float32, device=x.device)
+    fn = "tiled_spmm_launch"
+    _lib.check(_lib.entry(fn)(
+        ts.tiles.data_ptr(), code, ts.tile_rows.data_ptr(),
+        ts.tile_cols.data_ptr(), x.data_ptr(), y.data_ptr(), ts.num_tiles,
+        n, k, int(kt), _lib.stream_of(x)), fn)
+    return y[:m]
+
+
+def bsr_spmv(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
+    """K5: ``y = A x`` over the tile stream, x [n] -> f32 [m]. The adds
+    into y are atomic, so their order (and the last bits) vary from run to
+    run."""
+    m, n = ts.shape
+    if x.shape != (n,):
+        raise ValueError(f"x must be [{n}], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return bsr_spmv_plain(ts, x)
+    code = _check_tiled(ts)
+    x = _operand(x, 1)
+    mp, _ = ts.padded_shape()
+    y = torch.zeros(mp, dtype=torch.float32, device=x.device)
+    fn = "tiled_spmv_launch"
+    _lib.check(_lib.entry(fn)(
+        ts.tiles.data_ptr(), code, ts.tile_rows.data_ptr(),
+        ts.tile_cols.data_ptr(), x.data_ptr(), y.data_ptr(), ts.num_tiles,
+        n, _lib.stream_of(x)), fn)
+    bsr_spmv.launches += 1
+    return y[:m]
+
+
+bsr_spmv.launches = 0
+
+
+def bsr_spmm(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
+    """K7: ``Y = A X`` for X [n, R] with the whole R in one column tile ->
+    f32 [m, R]. Atomic adds, as in K5."""
+    if x.ndim != 2:
+        raise ValueError(f"X must be [n, R], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return bsr_spmm_plain(ts, x)
+    y = tiled_spmm_launch(ts, x, int(x.shape[1]))
+    bsr_spmm.launches += 1
+    return y
+
+
+bsr_spmm.launches = 0

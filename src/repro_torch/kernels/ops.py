@@ -1,4 +1,4 @@
-"""Public wrappers around the single-vector kernels.
+"""Public wrappers around the single-vector and tiled kernels.
 
 ``plain=True`` runs the kernels' plain PyTorch versions on any device (the
 counterpart of the reference's ``interpret=True``); otherwise a CUDA tensor
@@ -11,7 +11,25 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import CSR
+from . import bsr_spmv as _bsr
 from . import merge_spmv as _merge
+from .tiling import TiledSparse
+
+
+def bsr_spmv(ts: TiledSparse, x: torch.Tensor, *,
+             plain: bool = False) -> torch.Tensor:
+    """Tiled SpMV ``y = A x`` (K5) -> f32[m]."""
+    if plain:
+        return _bsr.bsr_spmv_plain(ts, x)
+    return _bsr.bsr_spmv(ts, x)
+
+
+def bsr_spmm(ts: TiledSparse, x: torch.Tensor, *,
+             plain: bool = False) -> torch.Tensor:
+    """Tiled multi-RHS ``Y = A X`` (K7), X [n, R] -> f32[m, R]."""
+    if plain:
+        return _bsr.bsr_spmm_plain(ts, x)
+    return _bsr.bsr_spmm(ts, x)
 
 
 def merge_spmv(csr: CSR, x: torch.Tensor, *, num_spans: Optional[int] = None,

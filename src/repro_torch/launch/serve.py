@@ -335,7 +335,7 @@ def serve_spmv(args):
     t_batched = t_b.best_s
 
     t_s = obs.time_min_of_n(
-        lambda: [spmv(op.plan.matrix, x, impl=args.impl) for x in xs],
+        lambda: [spmv(op.plan.matrix, x, impl=op.plan.impl) for x in xs],
         reps=args.reps, warmup=1)
     seq, t_seq = t_s.last_result, t_s.best_s
 
@@ -365,6 +365,7 @@ def serve_spmv(args):
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch.core.convert import ALGORITHM_SPECS
     ap = argparse.ArgumentParser(
         description="single-device SpMV serving (repro_torch port)")
     ap.add_argument("--mode", choices=("spmv",), default="spmv")
@@ -373,6 +374,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-batch", type=int, default=32)
     ap.add_argument("--scale", type=float, default=0.02)
     ap.add_argument("--algorithm", default=None,
+                    choices=sorted(ALGORITHM_SPECS),
                     help="force a format (default: core.select with k)")
     ap.add_argument("--impl", default="auto",
                     choices=("auto", "ref", "kernel", "plain"),

@@ -5,7 +5,8 @@ Layers (one module each, mirroring ``repro.spmm``):
   ``sellcs``     SELL-C-σ storage
   ``reference``  pure-torch oracles per format (``impl="ref"``)
   ``kernels``    the CUDA kernel wrappers K1 (SELL-C-σ), K3 (its
-                 transpose) and K2 (merge CSR)
+                 transpose), K2 (merge CSR) and K6 (the tiled blocked
+                 formats)
   ``batching``   request batching for the serve path (k SpMVs -> 1 SpMM)
   ``operator``   SparseOperator: the partition-once/multiply-many handle
                  with an atomic plan swap (online format migration), its
@@ -20,14 +21,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.formats import COO, CSR
+from repro_torch.core.formats import COO, CSR, BlockedSparse
+from repro_torch.kernels.tiling import TiledSparse
 from . import reference
 from .batching import RequestBatcher, SpmvRequest, batch_spmv
-from .kernels import choose_k_tile, csr_spmm, sellcs_spmm
+from .kernels import choose_k_tile, csr_spmm, sellcs_spmm, tiled_spmm
 from .operator import (OperatorStats, RealizedPlan, SparseOperator,
                        TransposedOperator, coo_fingerprint, sparse_matmul)
-from .reference import (spmm_coo, spmm_coo_t, spmm_csr, spmm_ref,
-                        spmm_sellcs, spmm_sellcs_t)
+from .reference import (spmm_blocked, spmm_coo, spmm_coo_t, spmm_csr,
+                        spmm_ref, spmm_sellcs, spmm_sellcs_t)
 from .sellcs import SellCS, coo_to_sellcs
 
 IMPLS = ("auto", "ref", "kernel", "plain")
@@ -56,14 +58,17 @@ def spmm(mat, x: torch.Tensor, *, impl: str = "auto",
     The kernel paths return float32; the oracle returns
     ``promote_types(data, x)``.
 
+    The kernel formats are SELL-C-σ (K1), CSR (K2) and ``TiledSparse``
+    (K6, column tile ``k_tile``); a ``BlockedSparse`` has only its oracle.
+
     ``op='T'`` computes ``Y = A^T X`` over the same stored stream
     (``X: [m, k]``, ``Y: [n, k]``); the kernel paths support it on
     SELL-C-σ (K3), the oracle on SELL-C-σ and COO. A symmetric
     one-triangle SELL-C-σ matrix accepts either op (``A^T == A``)."""
     if op not in ("N", "T"):
         raise ValueError(f"op must be 'N' or 'T', got {op!r}")
-    has_kernel = isinstance(mat, SellCS) or (isinstance(mat, CSR)
-                                             and op == "N")
+    has_kernel = isinstance(mat, SellCS) or (
+        isinstance(mat, (CSR, TiledSparse)) and op == "N")
     if impl == "auto" and not has_kernel:
         impl = "ref"
     impl = resolve_impl(impl, x.device)
@@ -77,23 +82,27 @@ def spmm(mat, x: torch.Tensor, *, impl: str = "auto",
                         f"{type(mat).__name__}; convert with coo_to_sellcs")
     plain = impl == "plain"
     x2 = x[:, None] if x.ndim == 1 else x
-    if isinstance(mat, CSR):
+    if isinstance(mat, TiledSparse):
+        y = tiled_spmm(mat, x2, k_tile=k_tile, plain=plain)
+    elif isinstance(mat, CSR):
         y = csr_spmm(mat, x2, k_tile=k_tile, plain=plain)
     elif isinstance(mat, SellCS):
         y = sellcs_spmm(mat, x2, k_tile=k_tile, plain=plain, op=op)
     else:
         raise TypeError(f"no SpMM kernel for {type(mat).__name__}; convert "
-                        "with coo_to_sellcs / coo_to_csr")
+                        "with coo_to_sellcs / repro_torch.kernels."
+                        "coo_to_tiled / coo_to_csr")
     return y[:, 0] if x.ndim == 1 else y
 
 
 __all__ = [
     "SellCS", "coo_to_sellcs", "spmm", "resolve_impl", "IMPLS",
-    "choose_k_tile", "csr_spmm", "sellcs_spmm",
-    "spmm_ref", "spmm_coo", "spmm_csr", "spmm_sellcs", "spmm_sellcs_t",
+    "choose_k_tile", "csr_spmm", "sellcs_spmm", "tiled_spmm",
+    "spmm_ref", "spmm_coo", "spmm_csr", "spmm_blocked", "spmm_sellcs",
+    "spmm_sellcs_t",
     "spmm_coo_t", "reference",
     "RequestBatcher", "SpmvRequest", "batch_spmv",
     "SparseOperator", "RealizedPlan", "OperatorStats", "coo_fingerprint",
     "TransposedOperator", "sparse_matmul",
-    "COO", "CSR",
+    "COO", "CSR", "BlockedSparse", "TiledSparse",
 ]

@@ -1,25 +1,29 @@
-"""SpMM kernel wrappers for Hopper — SELL-C-σ (K1), its transpose (K3)
-and merge-path CSR (K2).
+"""SpMM kernel wrappers for Hopper — SELL-C-σ (K1), its transpose (K3),
+merge-path CSR (K2) and the k-tiled blocked-format multiply (K6).
 
 K1 :func:`sellcs_slots` replaces ``repro.spmm.kernels.sellcs_slots`` /
 ``_sellcs_kernel``; K3 :func:`sellcs_slots_t` replaces
 ``repro.spmm.kernels.sellcs_slots_t`` / ``_sellcs_t_kernel``; K2
 :func:`_merge_spmm_partials` replaces
-``repro.spmm.kernels._merge_spmm_partials`` / ``_merge_kernel``. All are
-CUDA C++ in ``repro_torch/csrc`` (see the notes in each source for the
-bound and the design). Each wrapper validates its operands,
+``repro.spmm.kernels._merge_spmm_partials`` / ``_merge_kernel``; K6
+:func:`tiled_spmm` replaces ``repro.spmm.kernels.tiled_spmm`` /
+``_tiled_kernel``. All are CUDA C++ in ``repro_torch/csrc`` (see the
+notes in each source for the bound and the design). Each wrapper
+validates its operands,
 launches on the current stream, raises on a launch error and counts its
 launches in ``<wrapper>.launches``. A wrapper given CPU tensors runs its
 plain PyTorch version instead (``*_plain`` here and in
 ``repro_torch.kernels.merge_spmv``); a CUDA tensor always launches the
 kernel.
 
-Both kernels cover all k columns in one launch and tile the columns
-inside the kernel, so the matrix stream is read once per multiply.
-``choose_k_tile`` keeps the reference's contract (``1 <= kt <= k``)
-re-derived for the card: there is no VMEM slab to fit, so only the
-roofline rule is left (past the float32 ridge more columns per pass buy
-nothing). The multiplies accept the reference's ``k_tile`` and ignore it.
+K1, K2 and K3 cover all k columns in one launch and tile the columns
+inside the kernel, so the matrix stream is read once per multiply; they
+accept the reference's ``k_tile`` and ignore it. K6 keeps the reference's
+column-tile grid axis: it reads the tile stream once per column tile of
+``k_tile`` columns (default :func:`choose_k_tile`). ``choose_k_tile``
+keeps the reference's contract (``1 <= kt <= k``) re-derived for the
+card: there is no VMEM slab to fit, so only the roofline rule is left
+(past the float32 ridge more columns per pass buy nothing).
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ import torch
 
 from repro_torch.core.formats import CSR
 from repro_torch.kernels import _lib
+from repro_torch.kernels import bsr_spmv as _bsr
 from repro_torch.kernels import merge_spmv as _merge
+from repro_torch.kernels.tiling import TiledSparse
 from repro_torch.roofline.analysis import csr_stream_bytes, ridge_intensity
 from .reference import sellcs_slot_x
 from .sellcs import SellCS
@@ -288,3 +294,39 @@ def csr_spmm(csr: CSR, x: torch.Tensor, *,
         return _merge.carry_out_fixup_plain(y, cr, cv)
     y, cr, cv = _merge_spmm_partials(plan, x, m)
     return _merge.carry_out_fixup(y, cr, cv)
+
+
+# --------------------------------------------------------------------------
+# K6: k-tiled SpMM over the mini-tile stream (TiledSparse)
+# --------------------------------------------------------------------------
+def tiled_spmm_plain(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K6: X [n, k] -> f32 [m, k]. Its answer does
+    not depend on the column tile, so it takes all k columns at once."""
+    return _bsr.tiled_products_plain(ts.tiles, ts.tile_rows, ts.tile_cols,
+                                     x, ts.shape)
+
+
+def tiled_spmm(ts: TiledSparse, x: torch.Tensor, *,
+               k_tile: Optional[int] = None,
+               plain: bool = False) -> torch.Tensor:
+    """K6: ``Y = A X`` over the dense-mini-tile stream with a column-tile
+    grid axis of ``k_tile`` columns (default :func:`choose_k_tile`) ->
+    f32 [m, k]. Serves every blocked paper format (their compute form is
+    ``TiledSparse``). ``plain=True``, or CPU tensors, run the plain
+    version. The adds into Y are atomic, so their order (and the last
+    bits) vary from run to run."""
+    m, n = ts.shape
+    if x.ndim != 2 or x.shape[0] != n:
+        raise ValueError(f"X must be [{n}, k], got {tuple(x.shape)}")
+    k = int(x.shape[1])
+    kt = k_tile or choose_k_tile(ts.shape, k, nnz=ts.nnz)
+    if not 1 <= kt <= k:
+        raise ValueError(f"k_tile must be in [1, {k}], got {kt}")
+    if plain or x.device.type == "cpu":
+        return tiled_spmm_plain(ts, x)
+    y = _bsr.tiled_spmm_launch(ts, x, kt)
+    tiled_spmm.launches += 1
+    return y
+
+
+tiled_spmm.launches = 0

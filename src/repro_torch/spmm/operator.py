@@ -28,7 +28,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.formats import COO, CSR
+from repro_torch.core.formats import COO, CSR, BlockedSparse
 from repro_torch.core.selector import (MachineSpec, MatrixStats, PlanSpec,
                                        _matrix_bytes_est, matrix_stats,
                                        select)
@@ -303,7 +303,15 @@ def _realize_single(coo: COO, stats: MatrixStats, spec: PlanSpec, *,
             "structure='symmetric' (one-triangle storage) is executable "
             f"only on the SELL-C-σ stream, not {algo!r}")
     impl_r = resolve_impl(impl, coo.device)
-    mat = convert(coo, algo, structure=structure)
+    if algo == "sellcs":
+        mat = convert(coo, algo, structure=structure)
+    else:
+        mat = convert(coo, algo)
+    if isinstance(mat, BlockedSparse):
+        # no kernel multiplies the blocked storage itself (its compute
+        # form is TiledSparse): the plan multiplies through its oracle,
+        # as the reference does off the TPU
+        impl_r = "ref"
     if isinstance(mat, CSR) and impl_r != "ref":
         # every CSR multiply runs the merge path: its plan is part of the
         # conversion, built here so that no served flush builds it

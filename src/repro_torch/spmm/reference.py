@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import COO, CSR
+from repro_torch.core.formats import COO, CSR, BlockedSparse
+from repro_torch.kernels.ref import bsr_spmm_ref
+from repro_torch.kernels.tiling import TiledSparse
 from .sellcs import SellCS
 
 
@@ -52,6 +54,21 @@ def spmm_csr(csr: CSR, x: torch.Tensor) -> torch.Tensor:
         contrib = (csr.data.to(dtype)[:, None]
                    * x2.to(dtype)[csr.col_ind.long()])
         y = _scatter_rows(m, csr.row_of_nnz(), contrib, dtype)
+    return y[:, 0] if squeeze else y
+
+
+def spmm_blocked(bs: BlockedSparse, x: torch.Tensor) -> torch.Tensor:
+    """Blocked-format SpMM: decode (block, local) -> global coordinates,
+    gather/FMA, scatter-add, in storage order."""
+    x2, squeeze = _as_2d(x)
+    m, _ = bs.shape
+    dtype = torch.promote_types(bs.data.dtype, x2.dtype)
+    if bs.nnz == 0:
+        y = torch.zeros((m, x2.shape[1]), dtype=dtype, device=x2.device)
+    else:
+        rows, cols = bs.global_rows_cols()
+        contrib = bs.data.to(dtype)[:, None] * x2.to(dtype)[cols]
+        y = _scatter_rows(m, rows, contrib, dtype)
     return y[:, 0] if squeeze else y
 
 
@@ -151,8 +168,8 @@ def spmm_coo_t(coo: COO, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm_ref(mat, x: torch.Tensor, *, op: str = "N") -> torch.Tensor:
-    """Oracle dispatch over the storage formats this port carries.
-    ``op='T'`` computes ``A^T X`` (supported for SellCS and COO)."""
+    """Oracle dispatch over every supported storage format. ``op='T'``
+    computes ``A^T X`` (supported for SellCS and COO)."""
     if op not in ("N", "T"):
         raise ValueError(f"op must be 'N' or 'T', got {op!r}")
     if op == "T":
@@ -162,10 +179,16 @@ def spmm_ref(mat, x: torch.Tensor, *, op: str = "N") -> torch.Tensor:
             return spmm_coo_t(mat, x)
         raise TypeError(
             f"no transpose SpMM oracle for {type(mat).__name__}")
+    if isinstance(mat, TiledSparse):
+        x2, squeeze = _as_2d(x)
+        y = bsr_spmm_ref(mat, x2)
+        return y[:, 0] if squeeze else y
     if isinstance(mat, SellCS):
         return spmm_sellcs(mat, x)
     if isinstance(mat, COO):
         return spmm_coo(mat, x)
     if isinstance(mat, CSR):
         return spmm_csr(mat, x)
+    if isinstance(mat, BlockedSparse):
+        return spmm_blocked(mat, x)
     raise TypeError(f"no SpMM oracle for {type(mat).__name__}")

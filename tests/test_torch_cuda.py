@@ -1,13 +1,13 @@
-"""repro_torch CUDA kernels (K1, K2, K3, K4 and the carry step) against
-their plain PyTorch versions, on the card. Every test here carries the
+"""repro_torch CUDA kernels (K1–K7 and the carry step) against their plain
+PyTorch versions, on the card. Every test here carries the
 ``cuda`` marker and skips without a CUDA device. The file imports no JAX,
 so it runs on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: ``max|kernel - plain| <= 1e-4 * max(1, max|plain|)`` (float32
-sums in another order; K3's atomic adds in an order that varies from run
-to run), as in ``chip_smoke.py``.
+sums in another order; the atomic adds of K3, K5, K6 and K7 in an order
+that varies from run to run), as in ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.core import coo_to_csr
 from repro_torch.data import matrices as TM
+from repro_torch.kernels import bsr_spmv as TBSR
+from repro_torch.kernels import coo_to_tiled
 from repro_torch.kernels import merge_spmv as TMS
 from repro_torch.kernels import ops as TOPS
 from repro_torch.spmm import kernels as TK
@@ -163,3 +165,55 @@ def test_rows_spanning_many_spans(cuda):
     csr = coo_to_csr(coo)
     X = torch.randn((n, 3), device=cuda)
     _close(csr_spmm(csr, X, num_spans=200), spmm_ref(coo, X))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("algo", ["mergeb", "csb", "bcohch"])
+@pytest.mark.parametrize("name", ["mawi_like", "road_like"])
+def test_tiled_kernels_match_plain(cuda, name, algo, dtype):
+    """K5, K6 (default and a narrower column tile) and K7 against their
+    plain versions on row-, Morton- and Hilbert-ordered tile streams, f32
+    and bf16 tiles, and the f32 ones against the triplet oracle."""
+    coo = _matrix(cuda, name)
+    ts = coo_to_tiled(coo, algo, dtype=dtype,
+                      num_bands=4 if algo == "bcohch" else 0)
+    n = coo.shape[1]
+    x = torch.randn(n, device=cuda)
+    _close(TBSR.bsr_spmv(ts, x), TBSR.bsr_spmv_plain(ts, x))
+    for k in (1, 8, 33):
+        X = torch.randn((n, k), device=cuda)
+        _close(TBSR.bsr_spmm(ts, X), TBSR.bsr_spmm_plain(ts, X))
+        for kt in {None, max(k // 4, 1)}:
+            _close(TK.tiled_spmm(ts, X, k_tile=kt),
+                   TK.tiled_spmm_plain(ts, X))
+        if dtype == torch.float32:
+            _close(spmm(ts, X), spmm_ref(coo, X))
+    if dtype == torch.float32:
+        _close(TOPS.bsr_spmv(ts, x), spmm_ref(coo, x))
+
+
+def test_tiled_launch_counters_and_ragged_edges(cuda):
+    """Each tiled wrapper counts its own launches (plain runs count none);
+    shapes that are not multiples of 8 x 128 read no X past n and write
+    no row past m."""
+    rng = np.random.default_rng(3)
+    m, n = 1001, 777
+    rows = rng.integers(0, m, 5000)
+    cols = rng.integers(0, n, 5000)
+    coo = TM.as_coo((rows, cols, rng.standard_normal(5000).astype(
+        np.float32), (m, n)), device=cuda)
+    ts = coo_to_tiled(coo, "csbh")
+    X = torch.randn((n, 5), device=cuda)
+    counts = (TBSR.bsr_spmv.launches, TBSR.bsr_spmm.launches,
+              TK.tiled_spmm.launches)
+    TOPS.bsr_spmv(ts, X[:, 0], plain=True)
+    TK.tiled_spmm(ts, X, plain=True)
+    assert (TBSR.bsr_spmv.launches, TBSR.bsr_spmm.launches,
+            TK.tiled_spmm.launches) == counts
+    _close(TOPS.bsr_spmv(ts, X[:, 1]), spmm_ref(coo, X[:, 1]))
+    _close(TOPS.bsr_spmm(ts, X), spmm_ref(coo, X))
+    _close(spmm(ts, X, k_tile=2), spmm_ref(coo, X))
+    assert (TBSR.bsr_spmv.launches, TBSR.bsr_spmm.launches,
+            TK.tiled_spmm.launches) == tuple(c + 1 for c in counts)
+    with pytest.raises(ValueError):
+        TK.tiled_spmm(ts, X, k_tile=6)

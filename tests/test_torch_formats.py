@@ -201,9 +201,16 @@ def test_interop_round_trips_reference_storage():
 
 
 def test_unported_formats_raise_naming_their_slice():
-    _, tc = _pair("hhh_like")
-    with pytest.raises(NotImplementedError, match="blocked"):
-        TC.convert(tc, "bcohc")
+    # every format is ported now: a blocked conversion equals the
+    # reference's array for array
+    jc, tc = _pair("hhh_like")
+    jb, tb = J.convert(jc, "bcohc"), TC.convert(tc, "bcohc")
+    assert isinstance(tb, TC.BlockedSparse)
+    for f in ("block_rows", "block_cols", "block_ptr", "packed", "data",
+              "blk_col_inc", "blk_row_jump"):
+        np.testing.assert_array_equal(_np(getattr(jb, f)),
+                                      getattr(tb, f).numpy())
+    assert tb.storage_bytes() == jb.storage_bytes()
     # one-triangle storage is ported; an asymmetric input is refused
     with pytest.raises(ValueError, match="A == A"):
         TSC.coo_to_sellcs(tc, structure="symmetric")
