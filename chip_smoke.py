@@ -10,7 +10,10 @@ the transpose path (one-triangle symmetric storage, forward + adjoint
 GMRES through ``repro_torch.examples.gmres``, gradient steps through the
 differentiable ``sparse_matmul``) at 1,048,576 rows, drives the paper's
 blocked formats through the tiled kernels (every blocked visit order at
-road_like --scale 8), shows through the wrappers' launch counters that
+road_like --scale 8), drives the multi-device schedules on a mesh of four
+shards that all name cuda:0 (``serve --devices 4 --mesh-devices
+cuda:0,cuda:0,cuda:0,cuda:0`` and ``repro_torch.spmm.distributed``),
+shows through the wrappers' launch counters that
 each path went through its kernels, and prints one JSON line per kernel
 table and a final status line:
 
@@ -51,7 +54,19 @@ Phases:
      its oracle) with every answer checked against the triplet oracle;
      ``repro_torch.examples.quickstart`` at road_like --scale 8; and
      hhh_like --scale 64, whose 12.5 M tiles the tiled conversion must
-     refuse with ``MemoryError`` (its 8 GiB density rule).
+     refuse with ``MemoryError`` (its 8 GiB density rule);
+  9. the multi-device schedules, P = 4 shards on cuda:0, k = 32: phase 2's
+     hhh_like --scale 64 partitioned by row bands and by merge spans
+     (num_chunks = 4), with and without compact X; the row and merge
+     multiplies with up-front, overlapped and fused (K8) gathers and op T
+     (K3) against the float64 oracle, the gather modes bitwise equal, K8
+     on every row shard against its plain version (card, plain, library
+     — ``torch.sparse`` CSR of the shard's rows — and bound ms, per shard
+     and summed) beside phase 2's single-device K1; road_like --scale 8
+     on the row schedule with a compact fused gather and mawi_like
+     --scale 4 on the merge schedule (its dense row split over shards);
+     then ``serve --devices 4 --compact-x on --gather fused`` at hhh_like
+     --scale 64, whose launch counts are K8's ``launches``.
 
 Bound: ``bound_ms`` is the larger of the bytes the SpMM function needs
 (CSR values and columns per nonzero, one row offset per row, X read once,
@@ -59,12 +74,14 @@ Y written once; ``spmm_bytes``) over the data-sheet HBM rate and
 2 * nnz * k flops over the float32 peak. K5–K7 also get the bound of
 their format's stream, ``stream_bound_ms``: the tile bytes plus 8 B per
 tile, X and Y over the HBM rate, or the dense tile math (2 * 1024 * k
-flops per tile) over the float32 peak. K8 (not ported yet) gets its bound
-printed beside K1's: K1's bytes plus one int32 of its column map per
-column of X. The stdout ends with a ``rows``
+flops per tile) over the float32 peak. K8's bound is summed over the
+shards: each shard's nonzeros (value and column), one row offset per row,
+its touched X rows with their col_map entries read once, and its rows of
+Y written once. The stdout ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
 latency, batcher phases and conversion times; the symmetric, GMRES and
-autograd phases), the card line, the ``kernels`` JSON line and the status
+autograd phases; the mesh phase), the card line, the ``kernels`` JSON
+line and the status
 line. K3's ``launches`` there is the sum over the GMRES and autograd
 phases, each counted from zero; K5's, K6's and K7's are the sums over
 phase 8's multiplies through the entry points (``core.spmv``,
@@ -154,12 +171,17 @@ def counters():
 
 
 def reset_counts():
+    from repro_torch.spmm import kernels as SK
     for w in counters().values():
         w.launches = 0
+    SK.sellcs_slots.fused_launches = 0
 
 
 def read_counts():
-    return {name: int(w.launches) for name, w in counters().items()}
+    from repro_torch.spmm import kernels as SK
+    out = {name: int(w.launches) for name, w in counters().items()}
+    out["K8"] = int(SK.sellcs_slots.fused_launches)
+    return out
 
 
 KERNEL_META = {
@@ -179,6 +201,8 @@ KERNEL_META = {
            "src/repro/spmm/kernels.py:147"),
     "K7": ("bsr_spmm", "src/repro_torch/csrc/tiled_spmm.cu",
            "src/repro/kernels/bsr_spmv.py:167"),
+    "K8": ("sellcs_slots_fused", "src/repro_torch/csrc/sellcs_spmm.cu",
+           "src/repro/spmm/kernels.py:260"),
 }
 BLOCKED_ORDERS = ("csb", "csbh", "bcoh", "bcohc", "bcohch", "bcohchp",
                   "mergeb", "mergebh")
@@ -204,8 +228,10 @@ def stream_bound_ms(ts, k: int) -> float:
 
 
 def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
-                  shape_rows: list, main: bool) -> None:
-    """Phase 2 on one matrix: every kernel against its plain version."""
+                  shape_rows: list, main: bool):
+    """Phase 2 on one matrix: every kernel against its plain version.
+    Returns the matrix and its SELL-C-σ stream for the main matrix (the
+    mesh phase reuses them), else None."""
     import torch
     from repro_torch.core import coo_to_csr
     from repro_torch.data import matrices
@@ -366,17 +392,13 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
                 table[kern] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                                "bound_ms": b, "bound_by": by,
                                "library_ms": lms}
-        if main and k == MAIN_K:
-            # K8 (not ported yet) is K1 with a column map read beside the
-            # stream: K1's bytes plus one int32 per column of X
-            b8, by8 = bound_ms(spmm_bytes(nnz, m, n, k) + 4 * n,
-                               2.0 * nnz * k)
-            table["K8_bound"] = {"bound_ms": b8, "bound_by": by8,
-                                 "matrix": name, "k": k}
-            print(f"[chip_smoke]   K8 (col_map gather, not ported) k={k} "
-                  f"bound_ms={b8:.4f} ({by8})", flush=True)
-    del A_lib, At_lib, sc, plan, csr, coo
+    del A_lib, At_lib, plan, csr
     torch.cuda.empty_cache()
+    if main:
+        return coo, sc
+    del sc, coo
+    torch.cuda.empty_cache()
+    return None
 
 
 def run_serve(argv, metrics_path):
@@ -422,7 +444,7 @@ def check_flush(res, max_batch: int) -> float:
     Y = torch.stack([res["answers"][r] for r in rids], dim=1)
     if Y.shape != (op.shape[0], len(rids)) or not torch.isfinite(Y).all():
         raise AssertionError(f"flush answers malformed: {tuple(Y.shape)}")
-    ref = spmm_ref(op.plan.matrix, X)
+    ref = spmm_ref(op.plan.single, X)
     err = max_err(Y, ref)
     if err > tol_of(ref):
         raise AssertionError(f"flush disagrees with the oracle: {err:.3g}")
@@ -887,6 +909,276 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
             "launches": launches, "seconds": secs}
 
 
+MESH_P = 4                # shards of the mesh phase, all on cuda:0
+
+
+def _shard_csr(coo, sharded, p: int):
+    """The library's CSR of row shard ``p``'s rows (global columns), the
+    K8 row's yardstick: the rows whose slots the band owns."""
+    import torch
+    sh = sharded.shards[p]
+    C, m = sharded.chunk, coo.shape[0]
+    slots = sharded.row_perm[sh.t_first * C:
+                             (sh.t_first + sh.t_ptr.shape[0] - 1) * C].long()
+    rows_p = torch.sort(slots[slots < m]).values
+    sel = torch.isin(coo.rows.long(), rows_p)
+    local = torch.searchsorted(rows_p, coo.rows.long()[sel])
+    A = torch.sparse_coo_tensor(torch.stack([local, coo.cols.long()[sel]]),
+                                coo.data[sel], (int(rows_p.numel()),
+                                                coo.shape[1]))
+    return A.coalesce().to_sparse_csr(), int(rows_p.numel()), int(sel.sum())
+
+
+def k8_rows(coo, sharded, X, reps: int) -> dict:
+    """K8 on every shard of a compact row partition: kernel vs plain
+    version, card, plain and library ms, and the bound of each shard's
+    work (its nonzeros' values and columns, a row offset per row, the
+    touched X rows and their col_map entries read once, its rows of Y
+    written once), per shard and summed."""
+    import torch
+    from repro_torch.spmm import kernels as SK
+    k = int(X.shape[1])
+    out = {"shards": [], "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_bytes": 0, "flops": 0.0, "max_abs_err": 0.0}
+    for p, sh in enumerate(sharded.shards):
+        kw = dict(num_slices=sh.num_slices, chunk=sharded.chunk,
+                  col_map=sh.col_map)
+
+        def kern():
+            return SK.sellcs_slots(sh.data, sh.cols, sh.slice_ptr, X, **kw)
+
+        def plain():
+            return SK.sellcs_slots_plain(sh.data, sh.cols, sh.slice_ptr, X,
+                                         **kw)
+        yk, yp = kern(), plain()
+        torch.cuda.synchronize()
+        err, tol = max_err(yk, yp), tol_of(yp)
+        if err > tol:
+            raise AssertionError(f"K8 disagrees with its plain version on "
+                                 f"shard {p}: {err:.3g} > {tol:.3g}")
+        A_p, rows_p, nnz_p = _shard_csr(coo, sharded, p)
+        nbytes = (nnz_p * 8 + (rows_p + 1) * 4
+                  + sh.n_touched * (k * 4 + 4) + rows_p * k * 4)
+        b, by = bound_ms(nbytes, 2.0 * nnz_p * k)
+        row = {"shard": p, "rows": rows_p, "nnz": nnz_p,
+               "n_touched": sh.n_touched, "max_abs_err": err, "tol": tol,
+               "ms": cuda_ms(kern, reps),
+               "plain_ms": cuda_ms(plain, max(reps // 2, 1)),
+               "library_ms": cuda_ms(lambda: A_p @ X, reps),
+               "bound_ms": b, "bound_by": by}
+        out["shards"].append(row)
+        for key in ("ms", "plain_ms", "library_ms"):
+            out[key] += row[key]
+        out["bound_bytes"] += nbytes
+        out["flops"] += 2.0 * nnz_p * k
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        print(f"[chip_smoke]   K8 shard {p}: rows {rows_p} nnz {nnz_p} "
+              f"touched {sh.n_touched} max_abs_err={err:.3g} tol={tol:.3g} "
+              f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} bound_ms={b:.4f} ({by})",
+              flush=True)
+        del A_p, yk, yp
+    out["bound_ms"], out["bound_by"] = bound_ms(out["bound_bytes"],
+                                                out["flops"])
+    return out
+
+
+def mesh_case(label, fn, X, ref, reps, counts_need=()):
+    """One multiply over the mesh: counted, checked against the float64
+    oracle, timed. Returns (answer, row)."""
+    import torch
+    y, counts = run_counted(fn)
+    if y.shape != ref.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"mesh {label}: malformed answer "
+                             f"{tuple(y.shape)}")
+    err, tol = max_err(y, ref), tol_of(ref)
+    if err > tol:
+        raise AssertionError(f"mesh {label} vs oracle: {err:.3g} > "
+                             f"{tol:.3g}")
+    for kern in counts_need:
+        if counts[kern] <= 0:
+            raise AssertionError(f"mesh {label} never launched {kern}")
+    ms = cuda_ms(fn, reps)
+    print(f"[chip_smoke]   mesh {label:<28} {ms:.4f} ms  max_abs_err="
+          f"{err:.3g} tol={tol:.3g} launches K1 {counts['K1']} K8 "
+          f"{counts['K8']} K3 {counts['K3']}", flush=True)
+    return y, {"case": label, "ms": ms, "max_abs_err": err, "tol": tol,
+               "launches": {k: counts[k] for k in ("K1", "K3", "K8")}}
+
+
+def run_mesh(coo, sc, k1_ms: float, scale_road: float, scale_mawi: float,
+             serve_scale: str, reps: int, table: dict) -> dict:
+    """Phase 9: the multi-device schedules on a mesh of MESH_P shards that
+    all name cuda:0."""
+    import torch
+    from repro_torch.data import matrices
+    from repro_torch.launch.mesh import make_spmm_mesh
+    from repro_torch.spmm import distributed as TD
+    from repro_torch.spmm import spmm_ref
+    from repro_torch.spmm.sellcs import coo_to_sellcs
+
+    t_phase = time.perf_counter()
+    devs = ["cuda:0"] * MESH_P
+    mesh = make_spmm_mesh((MESH_P, 1), devices=devs)
+    m, n = coo.shape
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    X = torch.randn((n, MAIN_K), generator=gen, device="cuda")
+    Xt = torch.randn((m, MAIN_K), generator=gen, device="cuda")
+    ref = spmm_ref(coo, X.double())
+    ref_t = spmm_ref(coo, Xt.double(), op="T")
+    parts, part_s = {}, {}
+    for label, fn, kw in (
+            ("row", TD.partition_sellcs_rows, {}),
+            ("row/cx", TD.partition_sellcs_rows, {"compact_x": True}),
+            ("merge4", TD.partition_sellcs_nnz, {"num_chunks": 4}),
+            ("merge4/cx", TD.partition_sellcs_nnz,
+             {"num_chunks": 4, "compact_x": True})):
+        t0 = time.perf_counter()
+        parts[label] = fn(sc, MESH_P, devices=devs, **kw)
+        part_s[label] = time.perf_counter() - t0
+    nt = [sh.n_touched for sh in parts["row/cx"].shards]
+    print(f"[chip_smoke] mesh hhh_like: P={MESH_P} on cuda:0, k={MAIN_K}; "
+          f"partition s {', '.join(f'{k} {v:.2f}' for k, v in part_s.items())}"
+          f"; row/cx touched {nt} of n={n}", flush=True)
+
+    def row(label, gather=None, op="N", x=X):
+        return lambda: TD.spmm_row_distributed(parts[label], x, mesh,
+                                               gather=gather, op=op)
+
+    def merge(label, gather=None, op="N", x=X):
+        return lambda: TD.spmm_merge_distributed(
+            parts[label], x, mesh, num_chunks=4, gather=gather, op=op)
+
+    rows, ys = [], {}
+    for label, fn, need in (
+            ("row", row("row"), ("K1",)),
+            ("row/cx upfront", row("row/cx", "upfront"), ("K1",)),
+            ("row/cx fused", row("row/cx", "fused"), ("K8",)),
+            ("merge4", merge("merge4"), ("K1",)),
+            ("merge4/cx upfront", merge("merge4/cx", "upfront"), ("K1",)),
+            ("merge4/cx overlap", merge("merge4/cx", "overlap"), ("K1",)),
+            ("merge4/cx fused", merge("merge4/cx", "fused"), ("K8",))):
+        ys[label], r = mesh_case(label, fn, X, ref, reps, need)
+        rows.append(r)
+    for a, b in (("row/cx upfront", "row/cx fused"),
+                 ("merge4/cx upfront", "merge4/cx fused"),
+                 ("merge4/cx upfront", "merge4/cx overlap")):
+        if not torch.equal(ys[a], ys[b]):
+            raise AssertionError(f"mesh {b} is not bitwise equal to {a}")
+    del ys
+    for label, fn in (("row/cx op=T", row("row/cx", op="T", x=Xt)),
+                      ("merge4 op=T", merge("merge4", op="T", x=Xt))):
+        _, r = mesh_case(label, fn, Xt, ref_t, reps, ("K3",))
+        rows.append(r)
+    print(f"[chip_smoke]   single-device K1 at k={MAIN_K}: {k1_ms:.4f} ms "
+          "(phase 2)", flush=True)
+    k8 = k8_rows(coo, parts["row/cx"], X, reps)
+    print(f"[chip_smoke]   K8 over {MESH_P} shards: {k8['ms']:.4f} ms "
+          f"(plain {k8['plain_ms']:.4f}, library {k8['library_ms']:.4f}, "
+          f"bound {k8['bound_ms']:.4f} {k8['bound_by']})", flush=True)
+    del parts, ref, ref_t, X, Xt
+    torch.cuda.empty_cache()
+
+    # road_like: narrow column bands, where compaction pays
+    others = []
+    for name, scale, part_fn, kw, gathers, need in (
+            ("road_like", scale_road, TD.partition_sellcs_rows,
+             {"compact_x": True}, ("upfront", "fused"), "K8"),
+            ("mawi_like", scale_mawi, TD.partition_sellcs_nnz,
+             {"num_chunks": 4}, (None,), "K1")):
+        c2 = matrices.as_coo(matrices.test_suite(scale)[name].make(),
+                             device="cuda")
+        s2 = coo_to_sellcs(c2)
+        part = part_fn(s2, MESH_P, devices=devs, **kw)
+        x2 = torch.randn((c2.shape[1], MAIN_K), generator=gen,
+                         device="cuda")
+        ref2 = spmm_ref(c2, x2.double())
+        fn = (TD.spmm_row_distributed if part.schedule == "row"
+              else TD.spmm_merge_distributed)
+        extra = {} if part.schedule == "row" else {"num_chunks": 4}
+        outs = []
+        for g in gathers:
+            y, r = mesh_case(f"{name} {part.schedule}"
+                             + (f"/cx {g}" if g else "/chunks=4"),
+                             lambda g=g: fn(part, x2, mesh, gather=g,
+                                            **extra), x2, ref2, reps,
+                             (need,) if g in (None, "fused") else ("K1",))
+            outs.append(y)
+            r.update(matrix=name, scale=scale, nnz=c2.nnz)
+            if part.col_map is not None:
+                r["n_touched"] = [sh.n_touched for sh in part.shards]
+            others.append(r)
+        if len(outs) == 2 and not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"{name}: fused is not bitwise equal to "
+                                 "up-front")
+        del c2, s2, part, x2, ref2, outs
+        torch.cuda.empty_cache()
+
+    # the main path of this slice: serve over the mesh, through the user's
+    # entry point, the counts set to 0 just before and read just after
+    with tempfile.TemporaryDirectory() as tmp:
+        res, counts, doc = run_serve(
+            ["--mode", "spmv", "--matrix", "hhh_like", "--scale",
+             serve_scale, "--requests", "128", "--max-batch", str(MAIN_K),
+             "--reps", "1", "--devices", str(MESH_P), "--mesh-devices",
+             ",".join(devs), "--compact-x", "on", "--gather", "fused"],
+            os.path.join(tmp, "mesh.json"))
+    if counts["K8"] <= 0:
+        raise AssertionError(f"serve --devices never launched K8: {counts}")
+    err = check_flush(res, MAIN_K)
+    serve_row = serve_summary("mesh", res, doc, counts)
+    serve_row.update(plan=res["op"].plan.label, max_abs_err=err,
+                     phases_spmm={
+                         h["name"]: {"count": h["count"],
+                                     "mean_ms": h["mean"] * 1e3}
+                         for h in doc["histograms"]
+                         if h["count"] and h["name"].startswith("spmm/")})
+    print(f"[chip_smoke] serve --devices {MESH_P} (mesh of cuda:0): plan "
+          f"{res['op'].plan.label}; launches {counts}; batched "
+          f"{res['t_batched'] * 1e3:.2f} ms, sequential "
+          f"{res['t_seq'] * 1e3:.2f} ms; flush vs oracle max_abs_err "
+          f"{err:.3g}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    k8_table = {"max_abs_err": k8["max_abs_err"], "ms": k8["ms"],
+                "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"],
+                "bound_by": k8["bound_by"], "library_ms": k8["library_ms"],
+                "per_shard_ms": [r["ms"] for r in k8["shards"]]}
+    table["K8"] = k8_table
+    secs = time.perf_counter() - t_phase
+    print(f"[chip_smoke] mesh phase {secs:.1f} s", flush=True)
+    return {"hhh": rows, "k1_single_ms": k1_ms, "partition_s": part_s,
+            "k8": k8, "others": others, "serve": serve_row,
+            "launches": counts, "seconds": secs}
+
+
+PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
+
+
+def k9_bounds() -> list:
+    """K9 (not ported yet: the LM slice) — the least time of one MoE
+    layer's three grouped GEMMs (gate, up: [T*top_k, d] x [E, d, f]; down:
+    [T*top_k, f] x [E, f, d]) at granite_moe_1b_a400m's shapes (d_model
+    1024, d_ff 512, 32 experts, top-8), bf16 inputs and weights read once,
+    f32 outputs written once (the reference's default ``out_dtype``), or
+    the flops at the bf16 dense peak, whichever is larger; for a prefill
+    of T = 4096 tokens and a decode step of T = 32."""
+    from repro_torch.roofline import HBM_BW
+    d, f, E, top = 1024, 512, 32, 8
+    out = []
+    for tokens in (4096, 32):
+        rows = tokens * top
+        nbytes = flops = 0.0
+        for kin, nout in ((d, f), (d, f), (f, d)):
+            nbytes += rows * kin * 2 + E * kin * nout * 2 + rows * nout * 4
+            flops += 2.0 * rows * kin * nout
+        t_b, t_f = nbytes / HBM_BW, flops / PEAK_BF16
+        out.append({"tokens": tokens, "bytes": nbytes, "flops": flops,
+                    "bound_ms": max(t_b, t_f) * 1e3,
+                    "bound_by": "bytes" if t_b >= t_f else "operations"})
+    return out
+
+
 def _csr_parts(coo):
     """(crow, col, val) of the library's CSR of ``coo`` (a baseline only)."""
     from repro_torch.core import coo_to_csr
@@ -932,11 +1224,13 @@ def main(argv=None) -> int:
     table: dict = {}
     shape_rows: list = []
     reps = 3 if args.quick else 5
+    kept = None
     for i, (name, scale) in enumerate((("hhh_like", 64.0),
                                        ("mawi_like", 4.0),
                                        ("road_like", 8.0))):
-        check_kernels(name, scale / div, KS, reps, table, shape_rows,
-                      main=(i == 0))
+        out = check_kernels(name, scale / div, KS, reps, table, shape_rows,
+                            main=(i == 0))
+        kept = kept or out
 
     # phase 3: serve path A — SELL-C-σ pinned (K1)
     serve_scale = f"{64.0 / div:g}"
@@ -984,13 +1278,24 @@ def main(argv=None) -> int:
     # phase 8: the blocked formats
     blocked_row = run_blocked(8.0 / div, 4.0 / div, 64.0 / div, reps, table)
 
+    # phase 9: the multi-device schedules (the phase-2 hhh_like matrix)
+    mesh_row = run_mesh(*kept, table["K1"]["ms"], 8.0 / div, 4.0 / div,
+                        serve_scale, reps, table)
+    del kept
+    k9 = k9_bounds()
+    for row in k9:
+        print(f"[chip_smoke] K9 (not ported) granite_moe_1b_a400m MoE layer"
+              f", {row['tokens']} tokens: bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']})", flush=True)
+
     launches = {"K1": counts_a["K1"], "K2": counts_b["K2"],
                 "K3": gmres_row["launches"]["K3"]
                 + grad_row["launches"]["K3"],
                 "K4": counts_b["K4"], "carry": counts_b["carry"],
-                **blocked_row["launches"]}
+                **blocked_row["launches"],
+                "K8": mesh_row["launches"]["K8"]}
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "carry", "K5", "K6", "K7"):
+    for key in ("K1", "K2", "K3", "K4", "carry", "K5", "K6", "K7", "K8"):
         nm, src, rep = KERNEL_META[key]
         row = table[key]
         entry = {"name": nm, "route": "cuda", "source": src,
@@ -999,15 +1304,16 @@ def main(argv=None) -> int:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"]}
-        if "stream_bound_ms" in row:
-            entry["stream_bound_ms"] = row["stream_bound_ms"]
+        for extra in ("stream_bound_ms", "per_shard_ms"):
+            if extra in row:
+                entry[extra] = row[extra]
         kernels.append(entry)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"rows": shape_rows, "serve": serve_rows,
                       "symmetric": sym_row, "gmres": gmres_row,
                       "autograd": grad_row, "blocked": blocked_row,
-                      "k8_bound": table["K8_bound"]}))
+                      "mesh": mesh_row, "k9_bound": k9}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// K1 — SELL-C-sigma slot-space SpMM on Hopper (sm_90a), and
+// K1 — SELL-C-sigma slot-space SpMM on Hopper (sm_90a),
+// K8 — the same with the compact-X gather fused in, and
 // K3 — its transpose (further down).
 //
 // Replaces: repro/spmm/kernels.py `sellcs_slots` / `_sellcs_kernel`, the
@@ -27,6 +28,19 @@
 //
 // Simple and correct first: no TMA/wgmma, no software pipelining beyond
 // the unrolled loop (a later, measured change).
+//
+// K8 replaces: repro/spmm/kernels.py `sellcs_slots(col_map=...)` /
+// `_sellcs_fused_kernel`, the `gather="fused"` mode of the distributed
+// multiplies: a shard's stored cols are compact ids into its touched
+// column set, and col_map (riding the TPU's scalar prefetch) names the row
+// of the full X each one reads:
+//     Y[s * C + l, :] += data[w, l] * X[col_map[cols[w, l]], :]
+// Bound on this card: bytes, as K1, plus one int32 of col_map per touched
+// column; X is read only at the touched rows. Design: K1's body with one
+// more load per (width-row, lane) — gcol = col_map[cols[w, l]] — before the
+// read of X. The adds per slot keep K1's order, so the fused gather and
+// the up-front slab (x[col_map], then K1 on compact ids) give bitwise-equal
+// results, as the reference's gather modes do.
 
 #include <cuda_runtime.h>
 
@@ -34,9 +48,11 @@ namespace {
 
 constexpr int kBlock = 256;
 
+template <bool kFused>
 __global__ void __launch_bounds__(kBlock)
 sellcs_slots_kernel(const float* __restrict__ data,
                     const int* __restrict__ cols,
+                    const int* __restrict__ col_map,
                     const int* __restrict__ slice_ptr,
                     const float* __restrict__ x,
                     float* __restrict__ y, int chunk, int k) {
@@ -53,7 +69,8 @@ sellcs_slots_kernel(const float* __restrict__ data,
   float acc = 0.f;
 #pragma unroll 4
   for (int w = w0; w < w1; ++w) {
-    acc = fmaf(*dp, x[(long long)(*cp) * k + j], acc);
+    const int c = kFused ? col_map[*cp] : *cp;
+    acc = fmaf(*dp, x[(long long)c * k + j], acc);
     dp += chunk;
     cp += chunk;
   }
@@ -136,8 +153,24 @@ int sellcs_slots_launch(const float* data, const int* cols,
   const long long blocks_y = (per_slice + kBlock - 1) / kBlock;
   if (blocks_y > 65535) return (int)cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)num_slices, (unsigned)blocks_y);
-  sellcs_slots_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      data, cols, slice_ptr, x, y, chunk, k);
+  sellcs_slots_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      data, cols, nullptr, slice_ptr, x, y, chunk, k);
+  return (int)cudaGetLastError();
+}
+
+// K8: as sellcs_slots_launch, with cols compact ids into col_map i32[Ntc]
+// and x the full f32[n, k]. Returns cudaGetLastError().
+int sellcs_slots_fused_launch(const float* data, const int* cols,
+                              const int* col_map, const int* slice_ptr,
+                              const float* x, float* y, int num_slices,
+                              int chunk, int k, void* stream) {
+  if (num_slices <= 0 || chunk <= 0 || k <= 0) return 0;
+  const long long per_slice = (long long)chunk * k;
+  const long long blocks_y = (per_slice + kBlock - 1) / kBlock;
+  if (blocks_y > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)num_slices, (unsigned)blocks_y);
+  sellcs_slots_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      data, cols, col_map, slice_ptr, x, y, chunk, k);
   return (int)cudaGetLastError();
 }
 

@@ -21,10 +21,26 @@ decision inputs (``serve/multiplies_total``, ``serve/breakeven_estimate``,
 modeled residual record per flush. Headline timings are min-of-N
 (``--reps``).
 
+Mesh serving — ``--devices P`` answers each flush with a distributed SpMM
+over a P-device mesh (``repro_torch.spmm.distributed``); the schedule and
+the merge-sum chunk depth come from ``core.select_distributed``
+(``--chunks c`` pins the depth). ``--mesh Pd,Pm`` pins a 2-D (data, model)
+factorization whose model axis splits the X/Y columns. ``--compact-x on``
+partitions with per-shard column compaction; ``--gather
+upfront|overlap|fused`` schedules its X gather (fused = K8). The mesh
+takes the machine's first P cards unless ``--mesh-devices`` names them; a
+list may repeat one device, which runs every shard on it:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode spmv \
+      --matrix hhh_like --scale 64 --requests 256 --max-batch 32 \
+      --devices 4 --mesh-devices cuda:0,cuda:0,cuda:0,cuda:0 \
+      --compact-x on --gather fused
+
 Runs on ``--device cuda`` (default) with the CUDA kernels; ``--device
 cpu`` runs the same path on the CPU (``--impl plain`` for the kernels'
-plain versions, ``ref``/``auto`` for the oracles). Multi-device serving
-(``--devices``, ``--mesh``) and ``--mode fleet`` come with later slices.
+plain versions, ``ref``/``auto`` for the oracles; a mesh then needs
+``--mesh-devices cpu,cpu,...``). ``--mode fleet`` comes with a later
+slice.
 """
 from __future__ import annotations
 
@@ -121,9 +137,13 @@ class _MigrationController:
         from repro_torch.obs import choice_labels
         from repro_torch.roofline import spmm_distributed_time
         st, kb = self.stats, self.max_batch
+        # the current plan's measured touched-column mean (None without a
+        # compact plan) replaces the nnz-proportional bound of the score
+        nt = rp.n_touched
         ch = select_distributed(st, k=kb,
                                 num_spmvs=max(self.projected_total, 1),
-                                spec=self.target_spec, feedback=self.ledger)
+                                spec=self.target_spec, feedback=self.ledger,
+                                n_touched=nt)
         self._target_choice = ch
         pd, pm = ch.mesh_shape
         gx = ch.gather if ch.compact_x else "upfront"
@@ -132,7 +152,7 @@ class _MigrationController:
             matrix_bytes=_matrix_bytes_est(ch.algorithm, st),
             max_row_nnz=st.max_row_nnz, num_chunks=ch.num_chunks,
             model_devices=pm, compact_x=ch.compact_x, nnz=st.nnz,
-            gather=gx)
+            n_touched=nt if ch.compact_x else None, gather=gx)
         t_corr = self.ledger.correction(**choice_labels(
             schedule=ch.schedule, num_chunks=ch.num_chunks,
             mesh_shape=ch.mesh_shape, compact_x=ch.compact_x,
@@ -158,7 +178,11 @@ class _MigrationController:
         from repro_torch.core import PlanSpec
         ch = self._target_choice
         spec = self.target_spec if ch is None else PlanSpec(
-            num_devices=1, algorithm=ch.algorithm)
+            num_devices=ch.mesh_shape[0] * ch.mesh_shape[1],
+            mesh_shape=ch.mesh_shape, num_chunks=ch.num_chunks,
+            compact_x=ch.compact_x, schedule=ch.schedule,
+            algorithm=ch.algorithm,
+            gather=ch.gather if ch.compact_x else None)
 
         def build():
             try:
@@ -254,7 +278,8 @@ def _print_metrics_summary(reg):
               f"p99 {p['p99']*1e3:.2f} ms"
               f"{' (exact)' if flush.exact else ''}")
     phases = [h for h in reg.histograms()
-              if h.count and h.name.startswith("batcher/")]
+              if h.count and (h.name.startswith("spmm/")
+                              or h.name.startswith("batcher/"))]
     for h in sorted(phases, key=lambda h: h.name):
         print(f"[serve-spmv]   phase {h.name:<24} n={h.count:<4} "
               f"mean {h.mean*1e3:8.3f} ms  p95 "
@@ -284,6 +309,28 @@ def serve_spmv(args):
     suite = matrices.test_suite(scale=args.scale)
     if args.matrix not in suite:
         raise SystemExit(f"--matrix must be one of {sorted(suite)}")
+    mesh_shape = None
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh_shape
+        mesh_shape = parse_mesh_shape(args.mesh)
+        args.devices = mesh_shape[0] * mesh_shape[1]
+    mesh_devices = (args.mesh_devices.split(",") if args.mesh_devices
+                    else None)
+    if args.devices > 1:
+        have = (len(mesh_devices) if mesh_devices is not None
+                else torch.cuda.device_count())
+        if have < args.devices:
+            raise SystemExit(
+                f"the mesh needs {args.devices} devices but "
+                f"{'--mesh-devices names' if mesh_devices else 'the machine has'}"
+                f" {have}; name them with --mesh-devices (a list may "
+                "repeat one device, e.g. cuda:0,cuda:0,cuda:0,cuda:0)")
+        if args.algorithm and args.algorithm != "sellcs":
+            raise SystemExit(
+                f"--algorithm {args.algorithm} cannot be served on a mesh: "
+                "the --devices path multiplies the SELL-C-σ slice stream "
+                "(repro_torch.spmm.distributed); drop --algorithm or pass "
+                "sellcs")
     if args.migrate != "off" and args.algorithm:
         raise SystemExit(
             "--algorithm pins the format, --migrate lets the break-even "
@@ -292,16 +339,30 @@ def serve_spmv(args):
     stats = matrix_stats(coo)
     num_spmms = -(-args.requests // args.max_batch)
 
-    target_spec = PlanSpec(num_devices=1, algorithm="sellcs")
+    # the target the migration converts TO (and what --migrate off serves
+    # directly): SELL-C-σ over the requested mesh, --mesh / --chunks /
+    # --compact-x / --gather pinning knobs the selector would sweep
+    compact = {"auto": None, "on": True, "off": False}[args.compact_x]
+    gather = None if args.gather == "auto" else args.gather
+    if args.devices > 1:
+        target_spec = PlanSpec(
+            num_devices=args.devices,
+            mesh_shape=mesh_shape or (args.devices, 1),
+            num_chunks=args.chunks if args.chunks > 0 else None,
+            compact_x=compact, algorithm="sellcs", gather=gather)
+    else:
+        target_spec = PlanSpec(num_devices=1, algorithm="sellcs")
     if args.migrate != "off":
         initial_spec = PlanSpec(num_devices=1,
                                 algorithm=ZERO_CONVERSION_ALGO)
+    elif args.devices > 1:
+        initial_spec = target_spec
     else:
         initial_spec = PlanSpec(num_devices=1, algorithm=args.algorithm)
 
     op = SparseOperator.from_coo(coo, initial_spec, impl=args.impl,
                                  k_hint=args.max_batch,
-                                 num_spmvs=num_spmms)
+                                 num_spmvs=num_spmms, devices=mesh_devices)
     algo, build_s = op.plan.label, op.plan.build_s
     print(f"[serve-spmv] matrix={args.matrix} m={stats.m} n={stats.n} "
           f"nnz={stats.nnz} algo={algo} (built in {build_s:.3f} s) "
@@ -316,7 +377,8 @@ def serve_spmv(args):
     if args.metrics:
         reg = obs.install(obs.MetricRegistry(
             backend=device.type, mode="spmv", matrix=args.matrix, algo=algo,
-            devices=1, max_batch=args.max_batch, migrate=args.migrate,
+            devices=args.devices, max_batch=args.max_batch,
+            migrate=args.migrate,
             requests=args.requests))
     controller = None
     if args.migrate != "off":
@@ -335,7 +397,7 @@ def serve_spmv(args):
     t_batched = t_b.best_s
 
     t_s = obs.time_min_of_n(
-        lambda: [spmv(op.plan.matrix, x, impl=op.plan.impl) for x in xs],
+        lambda: [spmv(op.plan.single, x, impl=op.plan.impl) for x in xs],
         reps=args.reps, warmup=1)
     seq, t_seq = t_s.last_result, t_s.best_s
 
@@ -352,6 +414,7 @@ def serve_spmv(args):
           f"(min of {t_b.reps}, warmup {t_b.warmup})")
     print(f"[serve-spmv] modelled intensity {ai1:.3f} -> {aik:.3f} "
           f"flop/byte at k={args.max_batch}")
+    _print_traffic_model(op.spec, op.plan.n_touched, stats, args)
 
     if reg is not None or controller is not None:
         _serving_pass(op, xs, args, reg=reg, controller=controller)
@@ -364,10 +427,56 @@ def serve_spmv(args):
             "op": op, "xs": xs, "answers": out, "rids": rids}
 
 
+def _print_traffic_model(sp, n_touched, stats, args):
+    """The modelled per-device traffic of a mesh plan (nothing on one
+    device): HBM and collective bytes per flush, the compact-gather
+    saving, and the merge-sum pipelining."""
+    if (sp.num_devices or 1) <= 1:
+        return
+    from repro_torch.roofline import (spmm_distributed_collective_s,
+                                      spmm_distributed_gather_s,
+                                      spmm_distributed_traffic)
+    sched, chunks = sp.schedule, sp.num_chunks or 1
+    compact = bool(sp.compact_x)
+    gx = (sp.gather or "upfront") if compact else "upfront"
+    pd, pm = sp.mesh_shape
+    kw = dict(nnz=stats.nnz, max_row_nnz=stats.max_row_nnz,
+              model_devices=pm)
+    hbm, coll = spmm_distributed_traffic(
+        stats.m, stats.n, args.max_batch, pd, sched, compact_x=compact,
+        n_touched=n_touched, **kw)
+    print(f"[serve-spmv] modelled per-device traffic: {hbm / 1e6:.2f} MB "
+          f"HBM + {coll / 1e6:.2f} MB collective per flush "
+          f"(mesh=({pd},{pm}), schedule={sched}, chunks={chunks}, "
+          f"compact_x={'on' if compact else 'off'}"
+          + (f", gather={gx}" if compact else "") + ")")
+    if compact:
+        hbm_rep, _ = spmm_distributed_traffic(
+            stats.m, stats.n, args.max_batch, pd, sched, **kw)
+        print(f"[serve-spmv] compact gather: mean n_touched "
+              f"{n_touched:.0f} of n={stats.n} rows per shard — "
+              f"{(hbm_rep - hbm) / 1e6:.2f} MB HBM saved vs "
+              "replicated X per flush")
+        up, here = (spmm_distributed_gather_s(
+            stats.m, stats.n, args.max_batch, pd, sched, num_chunks=chunks,
+            compact_x=True, n_touched=n_touched, gather=g, **kw)
+            for g in ("upfront", gx))
+        print(f"[serve-spmv] exposed gather_s: {up * 1e6:.2f} us up-front "
+              f"-> {here * 1e6:.2f} us with gather={gx}")
+    if sched == "merge":
+        mono, over = (spmm_distributed_collective_s(
+            stats.m, stats.n, args.max_batch, pd, sched, num_chunks=c, **kw)
+            for c in (1, chunks))
+        print(f"[serve-spmv] exposed collective_s: {mono * 1e6:.2f} us "
+              f"monolithic -> {over * 1e6:.2f} us with {chunks} "
+              "chunk(s) pipelined under the slice stream")
+
+
 def build_parser() -> argparse.ArgumentParser:
     from repro_torch.core.convert import ALGORITHM_SPECS
     ap = argparse.ArgumentParser(
-        description="single-device SpMV serving (repro_torch port)")
+        description="SpMV serving on one device or a mesh (repro_torch "
+                    "port)")
     ap.add_argument("--mode", choices=("spmv",), default="spmv")
     ap.add_argument("--matrix", default="mawi_like")
     ap.add_argument("--requests", type=int, default=64)
@@ -376,6 +485,34 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--algorithm", default=None,
                     choices=sorted(ALGORITHM_SPECS),
                     help="force a format (default: core.select with k)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="serve each flush with a distributed SpMM over a "
+                         "1-D data mesh of this many devices (schedule "
+                         "chosen by core.select_distributed)")
+    ap.add_argument("--mesh", default=None, metavar="Pd,Pm",
+                    help="pin a 2-D (data, model) mesh; the model axis "
+                         "splits the X/Y columns (overrides --devices with "
+                         "Pd*Pm)")
+    ap.add_argument("--mesh-devices", default=None, dest="mesh_devices",
+                    metavar="DEV,DEV,...",
+                    help="the mesh's devices in order, e.g. "
+                         "cuda:0,cuda:0,cuda:0,cuda:0 (may repeat one "
+                         "device; default: the first cards)")
+    ap.add_argument("--chunks", type=int, default=0,
+                    help="pipeline the merge-schedule sum into this many "
+                         "chunks (0 = pick by the roofline overlap model; "
+                         "ignored by the row schedule)")
+    ap.add_argument("--compact-x", default="auto",
+                    choices=("auto", "on", "off"), dest="compact_x",
+                    help="per-shard column compaction: each data shard "
+                         "gathers only the X rows its nonzeros touch "
+                         "(auto = the traffic model decides)")
+    ap.add_argument("--gather", default="auto",
+                    choices=("auto", "upfront", "overlap", "fused"),
+                    help="compact-X gather schedule: up-front slab, per "
+                         "merge span (overlap), or inside the kernel "
+                         "(fused, K8); auto = the exposed-gather roofline "
+                         "term picks")
     ap.add_argument("--impl", default="auto",
                     choices=("auto", "ref", "kernel", "plain"),
                     help="kernel = the CUDA kernels (CUDA only); plain = "

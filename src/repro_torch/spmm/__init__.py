@@ -4,9 +4,10 @@ Layers (one module each, mirroring ``repro.spmm``):
 
   ``sellcs``     SELL-C-σ storage
   ``reference``  pure-torch oracles per format (``impl="ref"``)
-  ``kernels``    the CUDA kernel wrappers K1 (SELL-C-σ), K3 (its
-                 transpose), K2 (merge CSR) and K6 (the tiled blocked
-                 formats)
+  ``kernels``    the CUDA kernel wrappers K1 (SELL-C-σ), K8 (K1 with the
+                 compact-X gather fused in), K3 (its transpose), K2 (merge
+                 CSR) and K6 (the tiled blocked formats)
+  ``distributed`` the row-band and merge-span schedules over a device mesh
   ``batching``   request batching for the serve path (k SpMVs -> 1 SpMM)
   ``operator``   SparseOperator: the partition-once/multiply-many handle
                  with an atomic plan swap (online format migration), its
@@ -25,6 +26,10 @@ from repro_torch.core.formats import COO, CSR, BlockedSparse
 from repro_torch.kernels.tiling import TiledSparse
 from . import reference
 from .batching import RequestBatcher, SpmvRequest, batch_spmv
+from .distributed import (ShardedSellCS, partition_sellcs_nnz,
+                          partition_sellcs_rows, rechunk_sellcs,
+                          redeal_sellcs, spmm_merge_distributed,
+                          spmm_row_distributed)
 from .kernels import choose_k_tile, csr_spmm, sellcs_spmm, tiled_spmm
 from .operator import (OperatorStats, RealizedPlan, SparseOperator,
                        TransposedOperator, coo_fingerprint, sparse_matmul)
@@ -102,6 +107,9 @@ __all__ = [
     "spmm_sellcs_t",
     "spmm_coo_t", "reference",
     "RequestBatcher", "SpmvRequest", "batch_spmv",
+    "ShardedSellCS", "partition_sellcs_rows", "partition_sellcs_nnz",
+    "rechunk_sellcs", "redeal_sellcs",
+    "spmm_row_distributed", "spmm_merge_distributed",
     "SparseOperator", "RealizedPlan", "OperatorStats", "coo_fingerprint",
     "TransposedOperator", "sparse_matmul",
     "COO", "CSR", "BlockedSparse", "TiledSparse",

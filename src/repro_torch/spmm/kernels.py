@@ -1,8 +1,11 @@
-"""SpMM kernel wrappers for Hopper — SELL-C-σ (K1), its transpose (K3),
-merge-path CSR (K2) and the k-tiled blocked-format multiply (K6).
+"""SpMM kernel wrappers for Hopper — SELL-C-σ (K1), the same with the
+compact-X gather fused in (K8), its transpose (K3), merge-path CSR (K2) and
+the k-tiled blocked-format multiply (K6).
 
 K1 :func:`sellcs_slots` replaces ``repro.spmm.kernels.sellcs_slots`` /
-``_sellcs_kernel``; K3 :func:`sellcs_slots_t` replaces
+``_sellcs_kernel``; K8 is the same wrapper given a ``col_map`` and
+replaces ``sellcs_slots(col_map=…)`` / ``_sellcs_fused_kernel``; K3
+:func:`sellcs_slots_t` replaces
 ``repro.spmm.kernels.sellcs_slots_t`` / ``_sellcs_t_kernel``; K2
 :func:`_merge_spmm_partials` replaces
 ``repro.spmm.kernels._merge_spmm_partials`` / ``_merge_kernel``; K6
@@ -11,12 +14,12 @@ K1 :func:`sellcs_slots` replaces ``repro.spmm.kernels.sellcs_slots`` /
 notes in each source for the bound and the design). Each wrapper
 validates its operands,
 launches on the current stream, raises on a launch error and counts its
-launches in ``<wrapper>.launches``. A wrapper given CPU tensors runs its
+launches in ``<wrapper>.launches`` (K8's in ``sellcs_slots.fused_launches``). A wrapper given CPU tensors runs its
 plain PyTorch version instead (``*_plain`` here and in
 ``repro_torch.kernels.merge_spmv``); a CUDA tensor always launches the
 kernel.
 
-K1, K2 and K3 cover all k columns in one launch and tile the columns
+K1, K8, K2 and K3 cover all k columns in one launch and tile the columns
 inside the kernel, so the matrix stream is read once per multiply; they
 accept the reference's ``k_tile`` and ignore it. K6 keeps the reference's
 column-tile grid axis: it reads the tile stream once per column tile of
@@ -67,9 +70,12 @@ def choose_k_tile(shape: Tuple[int, int], k: int, *,
 # --------------------------------------------------------------------------
 def sellcs_slots_plain(data: torch.Tensor, cols: torch.Tensor,
                        slice_ptr: torch.Tensor, x: torch.Tensor, *,
-                       num_slices: int, chunk: int) -> torch.Tensor:
-    """Plain PyTorch version of K1: f32 slot sums [num_slices*chunk, k]
-    over the width-row stream (no row permutation applied)."""
+                       num_slices: int, chunk: int,
+                       col_map: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of K1 (and of K8 with ``col_map``): f32 slot
+    sums [num_slices*chunk, k] over the width-row stream (no row
+    permutation applied)."""
     W = int(data.shape[0])
     k = int(x.shape[1])
     dev = x.device
@@ -84,8 +90,10 @@ def sellcs_slots_plain(data: torch.Tensor, cols: torch.Tensor,
     step = max(_PLAIN_CHUNK_ELEMS // max(chunk * k, 1), 1)
     for w0 in range(0, W, step):
         sl = slice(w0, min(w0 + step, W))
-        contrib = (data[sl].to(torch.float32)[:, :, None]
-                   * x[cols[sl].long()])                   # [w, C, k]
+        c = cols[sl].long()
+        if col_map is not None:
+            c = col_map[c].long()
+        contrib = data[sl].to(torch.float32)[:, :, None] * x[c]  # [w, C, k]
         slot = slice_of[sl][:, None] * chunk + lanes[None]
         y.index_add_(0, slot.reshape(-1), contrib.reshape(-1, k))
     return y
@@ -93,16 +101,25 @@ def sellcs_slots_plain(data: torch.Tensor, cols: torch.Tensor,
 
 def sellcs_slots(data: torch.Tensor, cols: torch.Tensor,
                  slice_ptr: torch.Tensor, x: torch.Tensor, *,
-                 num_slices: int, chunk: int) -> torch.Tensor:
+                 num_slices: int, chunk: int,
+                 col_map: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: ``Y[s*C + l, :] = Σ_w data[w, l] * X[cols[w, l], :]`` over the
-    width-rows ``w`` of slice ``s`` -> f32[num_slices*chunk, k]."""
+    width-rows ``w`` of slice ``s`` -> f32[num_slices*chunk, k].
+
+    With ``col_map`` (int32[Ntc]) this is K8: ``cols`` are compact ids and
+    each entry reads ``X[col_map[cols[w, l]], :]`` of the full X — the
+    gather fused into the stream, bitwise equal to K1 on the gathered slab
+    ``X[col_map]``. Counted in ``sellcs_slots.fused_launches``."""
     if x.device.type == "cpu":
         return sellcs_slots_plain(data, cols, slice_ptr, x,
-                                  num_slices=num_slices, chunk=chunk)
+                                  num_slices=num_slices, chunk=chunk,
+                                  col_map=col_map)
     _lib.require(data, "data", torch.float32, 2)
     _lib.require(cols, "cols", torch.int32, 2)
     _lib.require(slice_ptr, "slice_ptr", torch.int32, 1)
     _lib.require(x, "x", torch.float32, 2)
+    if col_map is not None:
+        _lib.require(col_map, "col_map", torch.int32, 1)
     if data.shape != cols.shape or data.shape[1] != chunk:
         raise ValueError(f"data/cols must be [W, {chunk}], got "
                          f"{tuple(data.shape)} / {tuple(cols.shape)}")
@@ -111,16 +128,52 @@ def sellcs_slots(data: torch.Tensor, cols: torch.Tensor,
     k = int(x.shape[1])
     y = torch.empty((num_slices * chunk, k), dtype=torch.float32,
                     device=x.device)
-    fn = "sellcs_slots_launch"
+    if col_map is None:
+        fn = "sellcs_slots_launch"
+        _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(),
+                                  slice_ptr.data_ptr(), x.data_ptr(),
+                                  y.data_ptr(), num_slices, chunk, k,
+                                  _lib.stream_of(x)), fn)
+        sellcs_slots.launches += 1
+        return y
+    fn = "sellcs_slots_fused_launch"
     _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(),
-                              slice_ptr.data_ptr(), x.data_ptr(),
-                              y.data_ptr(), num_slices, chunk, k,
-                              _lib.stream_of(x)), fn)
-    sellcs_slots.launches += 1
+                              col_map.data_ptr(), slice_ptr.data_ptr(),
+                              x.data_ptr(), y.data_ptr(), num_slices, chunk,
+                              k, _lib.stream_of(x)), fn)
+    sellcs_slots.fused_launches += 1
     return y
 
 
 sellcs_slots.launches = 0
+sellcs_slots.fused_launches = 0
+
+
+def slice_ptr_of(slice_of: torch.Tensor, num_slices: int) -> torch.Tensor:
+    """int32[num_slices + 1] width offsets of a stream whose slice ids
+    ``slice_of`` are nondecreasing (a real width-row prefix)."""
+    ptr = torch.zeros(num_slices + 1, dtype=torch.int64,
+                      device=slice_of.device)
+    if slice_of.numel():
+        ptr[1:] = torch.cumsum(torch.bincount(slice_of.long(),
+                                              minlength=num_slices), 0)
+    return ptr.to(torch.int32)
+
+
+def sellcs_slots_chunk(data: torch.Tensor, cols: torch.Tensor,
+                       slice_of: torch.Tensor, x: torch.Tensor, *,
+                       slice_start: int, num_slices: int, chunk: int,
+                       col_map: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """K1 (K8 with ``col_map``) over one chunk sub-stream whose ``slice_of``
+    is still GLOBAL, rebased to the chunk-local slot space
+    ``[num_slices * chunk, k]`` that starts at global slice
+    ``slice_start``. The reference clips the padding rows' ids into range;
+    the CUDA kernels take a slice pointer instead of ids, so here the
+    stream must be the real prefix (ids nondecreasing, inside the span)."""
+    local = slice_of.long() - slice_start
+    return sellcs_slots(data, cols, slice_ptr_of(local, num_slices), x,
+                        num_slices=num_slices, chunk=chunk, col_map=col_map)
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,8 @@ return ``promote_types(data, x)`` — the kernels return float32. SpMV is the
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.formats import COO, CSR, BlockedSparse
@@ -74,11 +76,15 @@ def spmm_blocked(bs: BlockedSparse, x: torch.Tensor) -> torch.Tensor:
 
 def sellcs_slots_ref(data: torch.Tensor, cols: torch.Tensor,
                      slice_of: torch.Tensor, x2: torch.Tensor, *,
-                     num_slices: int, chunk: int) -> torch.Tensor:
+                     num_slices: int, chunk: int,
+                     col_map: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Raw-array slot accumulation [num_slices*chunk, k] — the oracle of
     ``repro_torch.spmm.kernels.sellcs_slots``. No row permutation is
-    applied."""
+    applied. With ``col_map`` the stored ``cols`` are compact ids mapped
+    through it before indexing ``x2`` (the fused-gather mode, K8)."""
     dtype = torch.promote_types(data.dtype, x2.dtype)
+    if col_map is not None:
+        cols = col_map[cols.long()]
     xs = x2.to(dtype)[cols.long()]                       # [W, C, k]
     contrib = data.to(dtype)[:, :, None] * xs            # [W, C, k]
     slot = (slice_of.long()[:, None] * chunk
@@ -87,6 +93,21 @@ def sellcs_slots_ref(data: torch.Tensor, cols: torch.Tensor,
                     device=data.device)
     return y.index_add_(0, slot.reshape(-1),
                         contrib.reshape(-1, x2.shape[1]))
+
+
+def sellcs_slots_chunk_ref(data: torch.Tensor, cols: torch.Tensor,
+                           slice_of: torch.Tensor, x2: torch.Tensor, *,
+                           slice_start: int, num_slices: int, chunk: int,
+                           col_map: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Slot accumulation over a chunk sub-stream whose ``slice_of`` is
+    still global, rebased to the chunk-local slot space starting at
+    ``slice_start`` (padding rows' ids clipped into range; they carry
+    zero data)."""
+    local = torch.clamp(slice_of.long() - slice_start, 0,
+                        max(num_slices - 1, 0))
+    return sellcs_slots_ref(data, cols, local, x2, num_slices=num_slices,
+                            chunk=chunk, col_map=col_map)
 
 
 def sellcs_slot_x(row_perm: torch.Tensor, x2: torch.Tensor,

@@ -217,3 +217,54 @@ def test_tiled_launch_counters_and_ragged_edges(cuda):
             TK.tiled_spmm.launches) == tuple(c + 1 for c in counts)
     with pytest.raises(ValueError):
         TK.tiled_spmm(ts, X, k_tile=6)
+
+
+@pytest.mark.parametrize("k", [1, 8, 33])
+@pytest.mark.parametrize("name", ["mawi_like", "road_like"])
+def test_fused_gather_kernel_matches_plain_and_upfront(cuda, name, k):
+    """K8 against its plain version, and bitwise equal to K1 over the
+    up-front slab ``x[col_map]`` (the adds per slot keep K1's order)."""
+    from repro_torch.spmm import distributed as TD
+    coo = _matrix(cuda, name)
+    part = TD.partition_sellcs_rows(coo_to_sellcs(coo), 3, compact_x=True)
+    X = torch.randn((coo.shape[1], k), device=cuda)
+    for sh in part.shards:
+        if sh.width_rows == 0:
+            continue
+        kw = dict(num_slices=sh.num_slices, chunk=part.chunk)
+        fused = TK.sellcs_slots(sh.data, sh.cols, sh.slice_ptr, X,
+                                col_map=sh.col_map, **kw)
+        _close(fused, TK.sellcs_slots_plain(sh.data, sh.cols, sh.slice_ptr,
+                                            X, col_map=sh.col_map, **kw))
+        slab = X.index_select(0, sh.col_map)
+        assert torch.equal(fused, TK.sellcs_slots(sh.data, sh.cols,
+                                                  sh.slice_ptr, slab, **kw))
+
+
+def test_fused_gather_counter_and_mesh_on_one_card(cuda):
+    """K8 counts in its own counter; the mesh multiplies on four shards of
+    one card agree with the oracle, and their gather modes bitwise."""
+    from repro_torch.launch.mesh import make_spmm_mesh
+    from repro_torch.spmm import distributed as TD
+    coo = _matrix(cuda, "hhh_like", 0.05)
+    sc = coo_to_sellcs(coo)
+    mesh = make_spmm_mesh((4, 1), devices=["cuda:0"] * 4)
+    X = torch.randn((coo.shape[1], 8), device=cuda)
+    ref = spmm_ref(coo, X)
+    for part in (TD.partition_sellcs_rows(sc, 4, compact_x=True),
+                 TD.partition_sellcs_nnz(sc, 4, num_chunks=3,
+                                         compact_x=True)):
+        fn = (TD.spmm_row_distributed if part.schedule == "row"
+              else TD.spmm_merge_distributed)
+        kw = {} if part.schedule == "row" else {"num_chunks": 3}
+        before = (TK.sellcs_slots.launches, TK.sellcs_slots.fused_launches)
+        up = fn(part, X, mesh, gather="upfront", **kw)
+        mid = (TK.sellcs_slots.launches, TK.sellcs_slots.fused_launches)
+        fused = fn(part, X, mesh, gather="fused", **kw)
+        after = (TK.sellcs_slots.launches, TK.sellcs_slots.fused_launches)
+        assert mid[0] > before[0] and mid[1] == before[1]
+        assert after[1] > mid[1] and after[0] == mid[0]
+        assert torch.equal(up, fused)
+        _close(up, ref)
+        Xt = torch.randn((coo.shape[0], 8), device=cuda)
+        _close(fn(part, Xt, mesh, op="T", **kw), spmm_ref(coo, Xt, op="T"))

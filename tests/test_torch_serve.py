@@ -92,16 +92,27 @@ def test_operator_builds_merge_plan_once_at_realize(impl):
 
 
 def test_operator_unported_surfaces_raise_naming_their_slice():
+    """The multi-device surfaces are ported: a mesh plan is realized over
+    the devices it is given, and without enough devices (or on a
+    single-device plan, for ``shrink_to``) it raises saying what is
+    missing instead of running somewhere else."""
     _, tc = _coos()
     op = SparseOperator.from_coo(tc, PlanSpec(num_devices=1,
                                               algorithm="sellcs"),
                                  impl="plain")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        op.realize(PlanSpec(num_devices=4))
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    need = 1 + max(torch.cuda.device_count()
+                   if torch.cuda.is_available() else 0, 1)
+    with pytest.raises(ValueError, match=f"needs {need} devices"):
+        op.realize(PlanSpec(num_devices=need))
+    with pytest.raises(ValueError, match="distributed plan"):
         op.shrink_to([0])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        SparseOperator.from_coo(tc, PlanSpec(num_devices=2), impl="plain")
+    mesh_op = SparseOperator.from_coo(tc, PlanSpec(num_devices=2),
+                                      impl="plain", devices=[CPU] * 2)
+    assert mesh_op.spec.num_devices == 2
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        tc.shape[1]).astype(np.float32))
+    np.testing.assert_allclose(mesh_op.matmul(x).numpy(),
+                               spmm_coo(tc, x).numpy(), rtol=RTOL, atol=ATOL)
 
 
 def test_batcher_matches_reference_batcher():
@@ -205,6 +216,8 @@ def test_import_isolation_no_jax_no_repro():
         for p in pkg.rglob("*.py"))
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    assert {"repro_torch.launch.mesh", "repro_torch.spmm.distributed",
+            "repro_torch.core.distributed"} <= set(mods)
     code = textwrap.dedent(f"""
         import sys
         for name in ("jax", "jaxlib", "repro"):
