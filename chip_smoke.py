@@ -13,7 +13,9 @@ blocked formats through the tiled kernels (every blocked visit order at
 road_like --scale 8), drives the multi-device schedules on a mesh of four
 shards that all name cuda:0 (``serve --devices 4 --mesh-devices
 cuda:0,cuda:0,cuda:0,cuda:0`` and ``repro_torch.spmm.distributed``),
-shows through the wrappers' launch counters that
+serves granite-moe-1b-a400m at full width (``serve --mode lm``:
+prefill + greedy decode with KV caches, the MoE layers through the
+grouped-GEMM kernel K9), shows through the wrappers' launch counters that
 each path went through its kernels, and prints one JSON line per kernel
 table and a final status line:
 
@@ -66,7 +68,27 @@ Phases:
      on the row schedule with a compact fused gather and mawi_like
      --scale 4 on the merge schedule (its dense row split over shards);
      then ``serve --devices 4 --compact-x on --gather fused`` at hhh_like
-     --scale 64, whose launch counts are K8's ``launches``.
+     --scale 64, whose launch counts are K8's ``launches``;
+ 10. LM serving: K9 against its plain version at granite-moe-1b-a400m's
+     serve shapes — gate/up (K = 1024, N = 512) and down (K = 512,
+     N = 1024), 32 experts, top-8, over a prefill of 4,096 tokens (32,768
+     rows, T_pad 36,864) and a decode step of 32 tokens (256 rows, T_pad
+     4,352), skewed seeded group sizes, bf16 rows times f32 weights; a
+     decode case with 20 empty groups; f32 x f32 at the reduced widths
+     (64, padded to 128) — with card, plain, bound and library ms (the
+     library: ``torch.bmm`` of the live tiles by their experts' weights,
+     both gathered outside the timed window); then ``serve --mode lm
+     --arch granite-moe-1b-a400m --batch 32 --prompt-len 128 --gen 16
+     --seed 0`` (the full config, 24 layers, 1.33e9 random parameters on
+     the card; 2 layers with --quick), which must launch K9 3 x layers x
+     16 times and generate tokens in range; every MoE layer of its
+     prefill, fed that run's own input, must give the same output through
+     K9, its plain version and the per-expert route within ``1e-2 *
+     max(1, max|other|)`` (the bf16 rounding of the layer output), and the
+     whole model's last-token prefill logits and first greedy token on
+     the three routes are reported; last, ``torch.profiler`` over one
+     prefill and three decode steps (device time by kernel, K9's share,
+     idle share).
 
 Bound: ``bound_ms`` is the larger of the bytes the SpMM function needs
 (CSR values and columns per nonzero, one row offset per row, X read once,
@@ -77,10 +99,16 @@ tile, X and Y over the HBM rate, or the dense tile math (2 * 1024 * k
 flops per tile) over the float32 peak. K8's bound is summed over the
 shards: each shard's nonzeros (value and column), one row offset per row,
 its touched X rows with their col_map entries read once, and its rows of
-Y written once. The stdout ends with a ``rows``
+Y written once. K9's bound counts the real rows (T x top-k) of bf16 lhs
+read once, the f32 weights of every expert that owns a row read once and
+the f32 output written once, or 2 flops per multiply-add at the float32
+peak (the weights are f32 and multiplied unrounded); its ``kernels``
+entry is one MoE layer (gate + up + down) of the served prefill, with the
+decode step's layer in ``decode_*``. The stdout ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
 latency, batcher phases and conversion times; the symmetric, GMRES and
-autograd phases; the mesh phase), the card line, the ``kernels`` JSON
+autograd phases; the mesh phase; the LM phase), the card line, the
+``kernels`` JSON
 line and the status
 line. K3's ``launches`` there is the sum over the GMRES and autograd
 phases, each counted from zero; K5's, K6's and K7's are the sums over
@@ -163,11 +191,13 @@ def tol_of(ref) -> float:
 def counters():
     from repro_torch.kernels import bsr_spmv as BS
     from repro_torch.kernels import merge_spmv as MS
+    from repro_torch.kernels import moe_group_matmul as MG
     from repro_torch.spmm import kernels as SK
     return {"K1": SK.sellcs_slots, "K2": SK._merge_spmm_partials,
             "K3": SK.sellcs_slots_t, "K4": MS.merge_spmv_partials,
             "carry": MS.carry_out_fixup, "K5": BS.bsr_spmv,
-            "K6": SK.tiled_spmm, "K7": BS.bsr_spmm}
+            "K6": SK.tiled_spmm, "K7": BS.bsr_spmm,
+            "K9": MG.moe_group_matmul_padded}
 
 
 def reset_counts():
@@ -203,6 +233,9 @@ KERNEL_META = {
            "src/repro/kernels/bsr_spmv.py:167"),
     "K8": ("sellcs_slots_fused", "src/repro_torch/csrc/sellcs_spmm.cu",
            "src/repro/spmm/kernels.py:260"),
+    "K9": ("moe_group_matmul_padded",
+           "src/repro_torch/csrc/moe_group_matmul.cu",
+           "src/repro/kernels/moe_group_matmul.py:75"),
 }
 BLOCKED_ORDERS = ("csb", "csbh", "bcoh", "bcohc", "bcohch", "bcohchp",
                   "mergeb", "mergebh")
@@ -1152,30 +1185,381 @@ def run_mesh(coo, sc, k1_ms: float, scale_road: float, scale_mawi: float,
             "launches": counts, "seconds": secs}
 
 
-PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
+# granite-moe-1b-a400m's MoE layer: d_model, d_ff (per expert), experts,
+# top-k; the served batch (--batch 32 --prompt-len 128 --gen 16)
+GRANITE = {"d": 1024, "f": 512, "E": 32, "top": 8}
+LM_BATCH, LM_PROMPT, LM_GEN = 32, 128, 16
+# one MoE layer's bf16 output, K9 against another route on the same input:
+# float32 sums in another order can round an output to the neighbouring
+# bf16 value, one step of at most 2^-7 = 0.0078 of the largest output
+LAYER_TOL_REL = 1e-2
+# whole-model last-token logits, reported as the share of rows within
+# this of the other route (not held: routing can tip, see moe_layer_check)
+LM_TOL_REL = 2e-2
+
+
+def k9_gemm_work(rows: int, kin: int, nout: int, n_used: int,
+                 lhs_bytes: int):
+    """(bytes, flops) one grouped GEMM needs: the ``rows`` real rows of
+    lhs read once, the f32 weights of the ``n_used`` experts that own rows
+    read once, the f32 output written once; 2 flops per multiply-add."""
+    return (rows * kin * lhs_bytes + n_used * kin * nout * 4
+            + rows * nout * 4, 2.0 * rows * kin * nout)
 
 
 def k9_bounds() -> list:
-    """K9 (not ported yet: the LM slice) — the least time of one MoE
-    layer's three grouped GEMMs (gate, up: [T*top_k, d] x [E, d, f]; down:
-    [T*top_k, f] x [E, f, d]) at granite_moe_1b_a400m's shapes (d_model
-    1024, d_ff 512, 32 experts, top-8), bf16 inputs and weights read once,
-    f32 outputs written once (the reference's default ``out_dtype``), or
-    the flops at the bf16 dense peak, whichever is larger; for a prefill
-    of T = 4096 tokens and a decode step of T = 32."""
-    from repro_torch.roofline import HBM_BW
-    d, f, E, top = 1024, 512, 32, 8
+    """The least time of one granite MoE layer's three grouped GEMMs
+    (gate, up: [T*8, 1024] x [32, 1024, 512]; down: [T*8, 512] x
+    [32, 512, 1024]) with bf16 activations, f32 weights and f32 outputs,
+    all 32 experts used: for a prefill of T = 4,096 tokens and a decode
+    step of T = 32. The flops go at the f32 FMA peak (the weights are f32
+    and are multiplied unrounded)."""
+    d, f, E, top = (GRANITE[k] for k in ("d", "f", "E", "top"))
     out = []
     for tokens in (4096, 32):
-        rows = tokens * top
         nbytes = flops = 0.0
         for kin, nout in ((d, f), (d, f), (f, d)):
-            nbytes += rows * kin * 2 + E * kin * nout * 2 + rows * nout * 4
-            flops += 2.0 * rows * kin * nout
-        t_b, t_f = nbytes / HBM_BW, flops / PEAK_BF16
+            b, fl = k9_gemm_work(tokens * top, kin, nout, E, 2)
+            nbytes += b
+            flops += fl
+        bms, by = bound_ms(nbytes, flops)
         out.append({"tokens": tokens, "bytes": nbytes, "flops": flops,
-                    "bound_ms": max(t_b, t_f) * 1e3,
-                    "bound_by": "bytes" if t_b >= t_f else "operations"})
+                    "bound_ms": bms, "bound_by": by})
+    return out
+
+
+def skewed_sizes(tokens: int, E: int, top: int, gen, empty: int = 0):
+    """Group sizes of ``tokens`` tokens routed to ``top`` distinct experts
+    each, drawn with probability ~ 1/rank^1.2 (a skewed router); the last
+    ``empty`` experts get no token."""
+    import torch
+    live = E - empty
+    p = 1.0 / torch.arange(1, live + 1, device="cuda",
+                           dtype=torch.float32) ** 1.2
+    pick = torch.multinomial(p.expand(tokens, live), top,
+                             replacement=False, generator=gen)
+    return torch.bincount(pick.reshape(-1), minlength=E)
+
+
+def k9_case(label, tokens: int, E: int, top: int, kin: int, nout: int,
+            lhs_dtype, reps: int, gen, empty: int = 0) -> dict:
+    """K9 on one grouped GEMM: the group padding of ``kernels.ops`` over
+    skewed group sizes, the kernel against its plain version, timed with
+    its plain version, its bound and the library yardstick: ``torch.bmm``
+    of the live m-tiles (f32) by their experts' weights, both gathered
+    outside the timed window (no single PyTorch call takes per-tile expert
+    ids)."""
+    import torch
+    from repro_torch.kernels import moe_group_matmul as MG
+    from repro_torch.kernels import ops as KO
+    sizes = skewed_sizes(tokens, E, top, gen, empty)
+    rows = tokens * top
+    kp = -(-kin // 128) * 128
+    np_ = -(-nout // 128) * 128
+    xs = torch.randn((rows, kin), generator=gen, device="cuda").to(lhs_dtype)
+    w = torch.randn((E, kp, np_), generator=gen, device="cuda") * kin ** -0.5
+    w[:, kin:] = 0.0
+    w[:, :, nout:] = 0.0
+    gp = KO.moe_group_pad(xs, sizes, E, kp)
+
+    def kern():
+        return MG.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
+                                          n_rows=gp.n_rows)
+
+    def plain():
+        return MG.moe_group_matmul_padded_plain(gp.lhs, w, gp.tile_expert,
+                                                n_rows=gp.n_rows)
+    yk, yp = kern(), plain()
+    torch.cuda.synchronize()
+    err, tol = max_err(yk, yp), tol_of(yp)
+    # the whole ops-level multiply (padding, K9, unpadding) against the
+    # per-token oracle on the unpadded operands
+    from repro_torch.kernels.ref import moe_group_matmul_ref
+    full = KO.moe_group_matmul(xs, w[:, :kin, :nout], sizes)
+    n_live = int(gp.n_rows) // 128
+    # (the oracle gathers a weight block per row: decode sizes only)
+    err_ref = (max_err(full, moe_group_matmul_ref(xs, w[:, :kin, :nout],
+                                                  sizes))
+               if rows <= 512 else None)
+    a_lib = gp.lhs[:n_live * 128].float().view(n_live, 128, kp)
+    w_lib = w[gp.tile_expert[:n_live].long()]
+    lib_ms = cuda_ms(lambda: torch.bmm(a_lib, w_lib), reps)
+    n_used = int((sizes > 0).sum())
+    nbytes, flops = k9_gemm_work(rows, kin, nout, n_used,
+                                 xs.element_size())
+    b, by = bound_ms(nbytes, flops)
+    row = {"case": label, "tokens": tokens, "rows": rows, "K": kin,
+           "N": nout, "experts": E, "experts_used": n_used,
+           "lhs_dtype": str(lhs_dtype).replace("torch.", ""),
+           "t_pad": int(gp.lhs.shape[0]), "live_tiles": n_live,
+           "max_abs_err": err, "tol": tol, "oracle_err": err_ref,
+           "ms": cuda_ms(kern, reps),
+           "plain_ms": cuda_ms(plain, max(reps // 2, 1)),
+           "bound_ms": b, "bound_by": by, "bytes": nbytes, "flops": flops,
+           "library_ms": lib_ms,
+           "max_group": int(sizes.max()), "empty_groups": E - n_used}
+    del a_lib, w_lib, full, yk, yp, gp, w, xs
+    torch.cuda.empty_cache()
+    ok = err <= tol and (err_ref is None or err_ref <= tol)
+    print(f"[chip_smoke]   K9 {label:<18} rows={rows} K={kin} N={nout} "
+          f"used={n_used}/{E} live_tiles={n_live} max_abs_err={err:.3g} "
+          f"tol={tol:.3g} oracle_err={err_ref} {'ok' if ok else 'FAIL'} "
+          f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f}", flush=True)
+    if not ok:
+        raise AssertionError(f"K9 disagrees on {label}: {err:.3g} / "
+                             f"{err_ref} > {tol:.3g}")
+    return row
+
+
+def run_lm(quick: bool, reps: int, table: dict) -> dict:
+    """Phase 10: K9 against its plain version at granite's serve shapes,
+    then ``serve --mode lm`` on granite-moe-1b-a400m at full width (all
+    24 layers; 2 with --quick), random weights from seed 0, its launch
+    counts read around the run, every MoE layer held against K9's plain
+    version and the per-expert route on the run's own inputs, the whole
+    model's logits on those routes reported, and a profile."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.accounting import count_params
+    from repro_torch.models.model import prefill
+
+    t_phase = time.perf_counter()
+    d, f, E, top = (GRANITE[k] for k in ("d", "f", "E", "top"))
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    prefill_tokens = LM_BATCH * LM_PROMPT
+    cases = []
+    for label, tokens in (("prefill", prefill_tokens), ("decode", LM_BATCH)):
+        for name, kin, nout in (("gate_up", d, f), ("down", f, d)):
+            cases.append(k9_case(f"{label}/{name}", tokens, E, top, kin,
+                                 nout, torch.bfloat16, reps, gen))
+    cases.append(k9_case("decode/empty_groups", LM_BATCH, E, top, d, f,
+                         torch.bfloat16, reps, gen, empty=E - 12))
+    cases.append(k9_case("reduced/f32", 64, 8, 4, 64, 64, torch.float32,
+                         reps, gen))
+
+    def layer(label, key):
+        """One MoE layer's three launches: gate and up (one shape) and
+        down, summed."""
+        by = {c["case"]: c for c in cases}
+        return 2 * by[f"{label}/gate_up"][key] + by[f"{label}/down"][key]
+
+    # the kernels line's K9 entry is one MoE layer of the served prefill
+    # (its bound from the summed bytes and flops), with the decode step's
+    # layer beside it
+    table["K9"] = {"max_abs_err": max(c["max_abs_err"] for c in cases)}
+    for pre, label in (("", "prefill"), ("decode_", "decode")):
+        b, by = bound_ms(layer(label, "bytes"), layer(label, "flops"))
+        table["K9"].update({
+            f"{pre}ms": layer(label, "ms"),
+            f"{pre}plain_ms": layer(label, "plain_ms"),
+            f"{pre}bound_ms": b, f"{pre}library_ms": layer(label,
+                                                           "library_ms")})
+        if not pre:
+            table["K9"]["bound_by"] = by
+    bounds = k9_bounds()
+
+    n_layers = 2 if quick else 0
+    argv = ["--mode", "lm", "--arch", "granite-moe-1b-a400m", "--batch",
+            str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--seed", "0",
+            "--device", "cuda"]
+    # a one-layer warm-up at the same widths first, so the counted run's
+    # times carry no one-time library and allocator start-up
+    serve.main(argv + ["--gen", "2", "--n-layers", "1"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = run_counted(lambda: serve.main(
+        argv + ["--gen", str(LM_GEN), "--n-layers", str(n_layers)]))
+    peak = torch.cuda.max_memory_allocated()
+    cfg = res["cfg"]
+    want = 3 * cfg.n_layers * LM_GEN
+    if counts["K9"] != want:
+        raise AssertionError(f"serve --mode lm launched K9 {counts['K9']} "
+                             f"times, expected {want}")
+    if res["n_params"] != count_params(cfg):
+        raise AssertionError(f"{res['n_params']} parameters, accounting "
+                             f"says {count_params(cfg)}")
+    gen_tok = res["tokens"]
+    if gen_tok.shape != (LM_BATCH, LM_GEN) or not (
+            (gen_tok >= 0) & (gen_tok < cfg.vocab)).all():
+        raise AssertionError(f"generated tokens malformed: "
+                             f"{gen_tok.shape}")
+    logits = res["prefill_logits"]
+    if logits.shape != (LM_BATCH, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits malformed")
+    layers = moe_layer_check(res)
+    whole = {}
+    for route, over in (("plain", {"moe_plain": True}),
+                        ("ref", {"moe_use_kernel": False})):
+        lg, _ = prefill(res["params"], dataclasses.replace(cfg, **over),
+                        res["prompts"], res["S_max"],
+                        cache_dtype=torch.float32)
+        tol = LM_TOL_REL * max(1.0, float(lg.abs().max()))
+        row_err = (logits - lg).abs().amax(dim=-1)
+        whole[route] = {
+            "max_abs_err": float(row_err.max()), "tol": tol,
+            "rows_within_tol": float((row_err <= tol).float().mean()),
+            "first_token_agree": float((logits.argmax(-1) == lg.argmax(-1)
+                                        ).float().mean())}
+        del lg
+    prof = profile_lm(res)
+    steps = LM_GEN - 1
+    lm = {"arch": cfg.name, "layers": cfg.n_layers, "batch": LM_BATCH,
+          "prompt_len": LM_PROMPT, "gen": LM_GEN,
+          "params": res["n_params"],
+          "prefill_ms": res["t_prefill"] * 1e3,
+          "decode_ms_per_step": res["t_decode"] * 1e3 / steps,
+          "tok_per_s": res["tok_per_s"],
+          "max_memory_allocated": peak, "launches": counts,
+          "moe_layers": layers, "whole_model": whole, "profile": prof,
+          "k9_cases": cases, "k9_bounds": bounds}
+    print(f"[chip_smoke] serve --mode lm {cfg.name}: {cfg.n_layers} layers,"
+          f" {res['n_params']} parameters; prefill {lm['prefill_ms']:.1f} ms"
+          f", decode {lm['decode_ms_per_step']:.2f} ms/step "
+          f"({res['tok_per_s']:.1f} tok/s); max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; K9 launches {counts['K9']}",
+          flush=True)
+    for route, o in whole.items():
+        print(f"[chip_smoke]   whole-model prefill logits K9 vs {route}: "
+              f"max_abs_err {o['max_abs_err']:.3g} (rows within "
+              f"{o['tol']:.3g}: {o['rows_within_tol']:.3f}); first greedy "
+              f"token agrees on {o['first_token_agree']:.3f} of the rows",
+              flush=True)
+    del res
+    torch.cuda.empty_cache()
+    lm["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke] lm phase {lm['seconds']:.1f} s", flush=True)
+    return lm
+
+
+def moe_layer_check(res) -> dict:
+    """Every MoE layer of the served prefill, fed the K9 route's own input
+    at that layer, through K9, its plain version and the per-expert route.
+    The router then sees one input on all three, so they route alike and
+    must agree to float32 sums in another order, seen through the bf16
+    rounding of the layer output: ``LAYER_TOL_REL * max(1, max|other|)``.
+    (Across the whole stack the routes are compared but not held to a
+    tolerance: a last-bit difference can tip a near-tied top-8 choice in a
+    later layer and move that token's output by O(1).)"""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import prefill_cache
+    from repro_torch.models.moe import moe_apply
+
+    params, cfg = res["params"], res["cfg"]
+    mcfg = cfg.moe_config()
+    routes = {"plain": mcfg._replace(plain=True),
+              "ref": mcfg._replace(use_kernel=False)}
+    worst = {r: {"max_abs_err": 0.0, "tol": 0.0, "layer": -1}
+             for r in routes}
+    with torch.no_grad():
+        h = M.embed_inputs(cfg, params, res["prompts"])
+        for l, lp in enumerate(params["layers"]):
+            out, _ = prefill_cache(lp["mixer"], cfg.attn_config(),
+                                   M._norm(cfg, lp["norm1"], h),
+                                   res["S_max"], torch.float32)
+            h = h + out
+            hn = M._norm(cfg, lp["norm2"], h)
+            yk, _ = moe_apply(lp["mlp"], mcfg, hn)
+            for route, rc in routes.items():
+                yo, _ = moe_apply(lp["mlp"], rc, hn)
+                err = max_err(yk, yo)
+                tol = LAYER_TOL_REL * max(1.0, float(yo.abs().max()))
+                if err > tol:
+                    raise AssertionError(f"MoE layer {l}: K9 vs {route} "
+                                         f"{err:.3g} > {tol:.3g}")
+                if err / tol >= worst[route]["max_abs_err"] / max(
+                        worst[route]["tol"], 1e-30):
+                    worst[route] = {"max_abs_err": err, "tol": tol,
+                                    "layer": l}
+            h = h + yk
+    torch.cuda.synchronize()
+    for route, w in worst.items():
+        print(f"[chip_smoke]   MoE layers, K9 vs {route} on the served "
+              f"prefill: worst max_abs_err {w['max_abs_err']:.3g} (layer "
+              f"{w['layer']}, tol {w['tol']:.3g}) over {cfg.n_layers} "
+              f"layers, ok", flush=True)
+    return worst
+
+
+def profile_lm(res, steps: int = 3) -> dict:
+    """Device time by kernel over one prefill and ``steps`` decode steps
+    of the served model (``torch.profiler``, device kernels only), K9's
+    share of it, and the device's idle share of the same work timed
+    without the profiler (synchronized host clock). Returns "not
+    measured" entries if the profiler gives no device times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import decode_step, prefill
+
+    params, cfg = res["params"], res["cfg"]
+    B, P = res["prompts"].shape
+    state = {}
+
+    def run_prefill():
+        lg, state["caches"] = prefill(params, cfg, res["prompts"],
+                                      res["S_max"],
+                                      cache_dtype=torch.float32)
+        state["tok"] = lg.argmax(-1)[:, None].to(torch.int32)
+
+    def run_decode():
+        # the same positions each time: a rerun rewrites the same cache rows
+        for i in range(steps):
+            pos = torch.full((B,), P + i, dtype=torch.int32, device="cuda")
+            lg, state["caches"] = decode_step(params, cfg, state["tok"],
+                                              state["caches"], pos)
+            state["tok"] = lg.argmax(-1)[:, None].to(torch.int32)
+
+    def kernel_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    out = {}
+    for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            # device kernels only: an operator's row repeats its kernels'
+            ka = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and kernel_us(e) > 0]
+        except Exception as exc:   # instrumentation only: report, go on
+            out[name] = {"not_measured": f"{type(exc).__name__}: {exc}"}
+            continue
+        busy = sum(kernel_us(e) for e in ka) / 1e3
+        if busy <= 0:
+            out[name] = {"not_measured": "no device times in the trace"}
+            continue
+        k9 = sum(kernel_us(e) for e in ka
+                 if "moe_group_matmul" in e.key) / 1e3
+        top = sorted(ka, key=kernel_us, reverse=True)[:8]
+        o = out[name] = {
+            "steps": 1 if name == "prefill" else steps, "wall_ms": wall_ms,
+            "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy
+                                                      / wall_ms),
+            "k9_ms": k9, "k9_share_of_busy": k9 / busy,
+            "kernel_launches": int(sum(e.count for e in ka)),
+            "top": [{"kernel": e.key[:80], "ms": kernel_us(e) / 1e3,
+                     "count": int(e.count)} for e in top]}
+        print(f"[chip_smoke]   profile {name} x{o['steps']}: wall "
+              f"{wall_ms:.2f} ms unprofiled, device kernels {busy:.2f} ms "
+              f"(idle {o['idle_share']:.3f}), K9 {k9:.2f} ms "
+              f"({o['k9_share_of_busy']:.3f} of busy), "
+              f"{o['kernel_launches']} kernel launches", flush=True)
+        for t in o["top"]:
+            print(f"[chip_smoke]     {t['ms']:9.3f} ms x{t['count']:<5} "
+                  f"{t['kernel']}", flush=True)
     return out
 
 
@@ -1282,20 +1666,21 @@ def main(argv=None) -> int:
     mesh_row = run_mesh(*kept, table["K1"]["ms"], 8.0 / div, 4.0 / div,
                         serve_scale, reps, table)
     del kept
-    k9 = k9_bounds()
-    for row in k9:
-        print(f"[chip_smoke] K9 (not ported) granite_moe_1b_a400m MoE layer"
-              f", {row['tokens']} tokens: bound_ms={row['bound_ms']:.4f} "
-              f"({row['bound_by']})", flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 10: LM serving (K9)
+    lm_row = run_lm(args.quick, reps, table)
 
     launches = {"K1": counts_a["K1"], "K2": counts_b["K2"],
                 "K3": gmres_row["launches"]["K3"]
                 + grad_row["launches"]["K3"],
                 "K4": counts_b["K4"], "carry": counts_b["carry"],
                 **blocked_row["launches"],
-                "K8": mesh_row["launches"]["K8"]}
+                "K8": mesh_row["launches"]["K8"],
+                "K9": lm_row["launches"]["K9"]}
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "carry", "K5", "K6", "K7", "K8"):
+    for key in ("K1", "K2", "K3", "K4", "carry", "K5", "K6", "K7", "K8",
+                "K9"):
         nm, src, rep = KERNEL_META[key]
         row = table[key]
         entry = {"name": nm, "route": "cuda", "source": src,
@@ -1304,7 +1689,9 @@ def main(argv=None) -> int:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"]}
-        for extra in ("stream_bound_ms", "per_shard_ms"):
+        for extra in ("stream_bound_ms", "per_shard_ms", "decode_ms",
+                      "decode_plain_ms", "decode_bound_ms",
+                      "decode_library_ms"):
             if extra in row:
                 entry[extra] = row[extra]
         kernels.append(entry)
@@ -1313,7 +1700,7 @@ def main(argv=None) -> int:
     print(json.dumps({"rows": shape_rows, "serve": serve_rows,
                       "symmetric": sym_row, "gmres": gmres_row,
                       "autograd": grad_row, "blocked": blocked_row,
-                      "mesh": mesh_row, "k9_bound": k9}))
+                      "mesh": mesh_row, "lm": lm_row}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ plain dataclasses holding tensors on an explicit device; conversions run on
 the host in numpy (as in the JAX package) and move their results to that
 device once.
 
-The ported slices carry single-device SpMV serving, the transpose path
-and the paper's blocked formats:
+The ported slices carry single-device SpMV serving, the transpose path,
+the paper's blocked formats, the multi-device schedules and LM serving:
 
 ``core``       ``COO``/``CSR``/``ICRS``/``BICRS``/``BlockedSparse`` storage
                and their conversions for all nine paper algorithms, the
@@ -20,18 +20,25 @@ and the paper's blocked formats:
                (``kernels``), the ``spmm`` dispatcher, ``SparseOperator``
                and ``RequestBatcher``
 ``kernels``    the merge-path SpMV kernel, the tiled compute format of the
-               blocked algorithms (``TiledSparse``) with its kernels, and
-               the shared build of the CUDA sources in ``csrc/``
+               blocked algorithms (``TiledSparse``) with its kernels, the
+               MoE grouped GEMM (K9) and the shared build of the CUDA
+               sources in ``csrc/``
 ``roofline``   the SpMM traffic model with H100 constants
 ``obs``        metrics registry, phase spans, residual ledger, min-of-N
-``launch``     ``python -m repro_torch.launch.serve --mode spmv``
+``configs``    the architecture configs (data) and the shape registry
+``models``     the decoder LM: attention with KV caches, the MoE layer
+               over the grouped-GEMM kernel K9, prefill and decode, the
+               parameter accounting
+``launch``     ``python -m repro_torch.launch.serve --mode spmv|lm`` and
+               the device mesh
 ``examples``   ``quickstart``, ``spmv_tour`` and ``gmres``
-``interop``    the JAX package's storage (as numpy dicts) -> port objects
+``interop``    the JAX package's storage and LM parameters (as numpy)
+               -> port objects
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The package imports no ``jax`` and nothing of ``repro``.
 """
 __version__ = "0.1.0"
 
-__all__ = ["core", "data", "spmm", "kernels", "roofline", "obs", "launch",
-           "examples", "interop"]
+__all__ = ["core", "data", "spmm", "kernels", "roofline", "obs", "configs",
+           "models", "launch", "examples", "interop"]

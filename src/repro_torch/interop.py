@@ -16,10 +16,13 @@ objects from it on ``device``. Nothing here imports JAX.
   data, grid_ptr, blk_col_inc, blk_row_jump, blk_row_ptr, shape, beta,
   grid, block_storage, block_order, in_block_format, in_block_order,
   row_bands}
+* :func:`lm_params_from_arrays` the LM parameter tree
+  (``jax.tree_util.tree_map(np.asarray, params)``) -> the port's
+  ``ParamTree`` with one module per layer
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -28,6 +31,7 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.formats import COO, CSR, BlockedSparse
 from repro_torch.kernels.merge_spmv import MergePlan
 from repro_torch.kernels.tiling import TiledSparse
+from repro_torch.models.model import ModelConfig, ParamTree
 from repro_torch.spmm.sellcs import SellCS
 
 
@@ -135,3 +139,30 @@ def blocked_from_arrays(d: Mapping, device: DeviceLike = None
         in_block_format=str(d["in_block_format"]),
         in_block_order=str(d["in_block_order"]),
         row_bands=tuple(int(b) for b in d.get("row_bands", ())))
+
+
+def _tree_t(tree: Any, dev, index=None):
+    """A nested dict of arrays as tensors on ``dev``; ``index`` takes one
+    entry of every leaf's leading (group) axis."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_t(v, dev, index) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return _float_t(a if index is None else a[index], dev)
+
+
+def lm_params_from_arrays(tree: Mapping, cfg: ModelConfig,
+                          device: DeviceLike = None) -> ParamTree:
+    """The reference's LM parameters as the port's module tree: each
+    ``groups[slot][leaf][g]`` (stacked over groups) becomes a leaf of
+    layer ``g * group_size + slot``; ``embed``, ``final_norm`` and, where
+    present, ``unembed`` and ``vision_proj`` carry over as they are."""
+    dev = resolve_device(device)
+    groups = tree["groups"]
+    gs = cfg.group_size
+    if len(groups) != gs:
+        raise ValueError(f"the tree has {len(groups)} slots per group, the "
+                         f"config {gs}")
+    out = {k: _tree_t(v, dev) for k, v in tree.items() if k != "groups"}
+    out["layers"] = [_tree_t(groups[l % gs], dev, l // gs)
+                     for l in range(cfg.n_layers)]
+    return ParamTree(out)

@@ -31,6 +31,7 @@ SOURCES = {
     "sellcs": "sellcs_spmm.cu",      # K1, K8 and K3
     "merge": "merge_spmm.cu",        # K2, K4 and the carry step
     "tiled": "tiled_spmm.cu",        # K5, K6 and K7
+    "moe": "moe_group_matmul.cu",    # K9
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,6 +55,8 @@ SIGNATURES = {
     "tiled_spmv_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _I, _I, _P]),
     "tiled_spmm_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _P]),
+    "moe_group_matmul_launch": ("moe", [_P, _I, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

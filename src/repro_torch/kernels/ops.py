@@ -1,4 +1,5 @@
-"""Public wrappers around the single-vector and tiled kernels.
+"""Public wrappers around the single-vector, tiled and grouped-GEMM
+kernels.
 
 ``plain=True`` runs the kernels' plain PyTorch versions on any device (the
 counterpart of the reference's ``interpret=True``); otherwise a CUDA tensor
@@ -6,14 +7,17 @@ launches the CUDA kernels and a CPU tensor takes the plain versions.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.formats import CSR
 from . import bsr_spmv as _bsr
 from . import merge_spmv as _merge
+from . import moe_group_matmul as _moe
 from .tiling import TiledSparse
+
+M_TILE = _moe.M_TILE
 
 
 def bsr_spmv(ts: TiledSparse, x: torch.Tensor, *,
@@ -48,3 +52,71 @@ def merge_spmv(csr: CSR, x: torch.Tensor, *, num_spans: Optional[int] = None,
         return _merge.carry_out_fixup_plain(y, cr, cv)[:, 0]
     y, cr, cv = _merge.merge_spmv_partials(plan, x, m)
     return _merge.carry_out_fixup(y, cr, cv)
+
+
+class GroupPadding(NamedTuple):
+    """Tokens sorted by expert, laid out with every group padded to
+    ``M_TILE`` rows (``kernels.ops.moe_group_pad``)."""
+    lhs: torch.Tensor          # [T_pad, Kp], zero outside the groups
+    tile_expert: torch.Tensor  # int32 [T_pad / M_TILE], clipped to E - 1
+    pos: torch.Tensor          # int64 [T], row of token t in lhs
+    n_rows: torch.Tensor       # int32 [1], padded_ptr[E]: the real length
+
+
+def moe_group_pad(tokens: torch.Tensor, group_sizes: torch.Tensor,
+                  num_experts: int, k_pad: int) -> GroupPadding:
+    """The reference's group padding (``repro.kernels.ops.moe_group_matmul``):
+    a static worst-case length ``T_pad = ceil(T / 128) * 128 + E * 128``,
+    each group starting at a multiple of 128, K zero-padded to ``k_pad``.
+    Everything stays on the tokens' device (no host sync)."""
+    T, K = tokens.shape
+    E = num_experts
+    if group_sizes.shape != (E,) or k_pad < K:
+        raise ValueError(f"group_sizes must be [{E}] and k_pad >= {K}; got "
+                         f"{tuple(group_sizes.shape)}, {k_pad}")
+    dev = tokens.device
+    T_pad = -(-T // M_TILE) * M_TILE + E * M_TILE
+    sizes = group_sizes.to(device=dev, dtype=torch.int64)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    ptr = torch.cat([zero, torch.cumsum(sizes, 0)])
+    padded_sizes = -(-sizes // M_TILE) * M_TILE
+    padded_ptr = torch.cat([zero, torch.cumsum(padded_sizes, 0)])
+    tok_idx = torch.arange(T, dtype=torch.int64, device=dev)
+    expert_of_token = torch.searchsorted(ptr[1:], tok_idx, right=True)
+    pos = padded_ptr[expert_of_token] + (tok_idx - ptr[expert_of_token])
+    lhs = torch.zeros((T_pad, k_pad), dtype=tokens.dtype, device=dev)
+    lhs[pos, :K] = tokens
+    tile_idx = torch.arange(T_pad // M_TILE, dtype=torch.int64, device=dev)
+    tile_expert = torch.searchsorted(padded_ptr[1:], tile_idx * M_TILE,
+                                     right=True).clamp(max=E - 1)
+    return GroupPadding(lhs, tile_expert.to(torch.int32), pos,
+                        padded_ptr[E:].to(torch.int32))
+
+
+def moe_group_matmul(tokens: torch.Tensor, weights: torch.Tensor,
+                     group_sizes: torch.Tensor, *,
+                     plain: bool = False) -> torch.Tensor:
+    """tokens [T, K] sorted by expert; group_sizes int [E]; weights
+    [E, K, N] -> out f32 [T, N] through K9 (its plain version with
+    ``plain=True`` or for CPU tensors).
+
+    Pads the groups to ``M_TILE`` (:func:`moe_group_pad`) and K/N to
+    multiples of 128 (zero rows and columns compute zeros); K9 skips the
+    tiles past the real padded length."""
+    T, K = tokens.shape
+    E, K2, N = weights.shape
+    if K2 != K or group_sizes.shape != (E,):
+        raise ValueError(f"tokens {tuple(tokens.shape)}, weights "
+                         f"{tuple(weights.shape)} and group_sizes "
+                         f"{tuple(group_sizes.shape)} do not fit")
+    Kp = -(-K // _moe.K_TILE) * _moe.K_TILE
+    Np = -(-N // _moe.N_TILE) * _moe.N_TILE
+    if (Kp, Np) != (K, N):
+        weights = torch.nn.functional.pad(weights,
+                                          (0, Np - N, 0, Kp - K))
+    weights = weights.contiguous()
+    g = moe_group_pad(tokens, group_sizes, E, Kp)
+    fn = _moe.moe_group_matmul_padded_plain if plain \
+        else _moe.moe_group_matmul_padded
+    out_pad = fn(g.lhs, weights, g.tile_expert, n_rows=g.n_rows)
+    return out_pad[g.pos, :N]

@@ -1,4 +1,5 @@
-"""Pure-torch oracles of the tiled kernels (``repro.kernels.ref``).
+"""Pure-torch oracles of the tiled kernels and the grouped GEMM
+(``repro.kernels.ref``).
 
 Each is a gather of the x slabs, an einsum and an ``index_add_``; they
 multiply in float32 without rounding x to the tile dtype (as the
@@ -39,3 +40,17 @@ def bsr_spmv_ref(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
                     device=x.device)
     y.index_add_(0, ts.tile_rows.long(), contrib)
     return y.view(mp)[:m]
+
+
+def moe_group_matmul_ref(tokens: torch.Tensor, weights: torch.Tensor,
+                         group_sizes: torch.Tensor) -> torch.Tensor:
+    """Oracle for the grouped GEMM: tokens [T, K] sorted by expert,
+    group_sizes int [E]; weights [E, K, N] -> f32 [T, N]. Gathers one
+    weight block per token: for small shapes only."""
+    T = tokens.shape[0]
+    bounds = torch.cumsum(group_sizes.to(torch.int64), 0)
+    expert_of_token = torch.searchsorted(
+        bounds, torch.arange(T, device=tokens.device), right=True)
+    w = weights[expert_of_token.clamp(max=weights.shape[0] - 1)]
+    return torch.einsum("tk,tkn->tn", tokens.to(torch.float32),
+                        w.to(torch.float32))

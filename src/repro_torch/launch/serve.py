@@ -41,6 +41,19 @@ cpu`` runs the same path on the CPU (``--impl plain`` for the kernels'
 plain versions, ``ref``/``auto`` for the oracles; a mesh then needs
 ``--mesh-devices cpu,cpu,...``). ``--mode fleet`` comes with a later
 slice.
+
+LM mode — batched prefill + greedy decode with KV caches, random weights
+from ``--seed``, the port of ``repro.launch.serve``'s LM branch. The MoE
+layers multiply through the grouped-GEMM kernel K9 (``--impl auto`` or
+``kernel`` on the card; ``plain`` = its plain PyTorch version; ``ref`` =
+the per-expert product, the reference's ``ragged_dot`` route, which
+``auto`` takes on the CPU):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+      --arch granite-moe-1b-a400m --batch 32 --prompt-len 128 --gen 16
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+      --arch granite-moe-1b-a400m --reduced --device cpu --impl plain
 """
 from __future__ import annotations
 
@@ -475,9 +488,9 @@ def _print_traffic_model(sp, n_touched, stats, args):
 def build_parser() -> argparse.ArgumentParser:
     from repro_torch.core.convert import ALGORITHM_SPECS
     ap = argparse.ArgumentParser(
-        description="SpMV serving on one device or a mesh (repro_torch "
-                    "port)")
-    ap.add_argument("--mode", choices=("spmv",), default="spmv")
+        description="SpMV serving on one device or a mesh, or LM serving "
+                    "(repro_torch port)")
+    ap.add_argument("--mode", choices=("spmv", "lm"), default="spmv")
     ap.add_argument("--matrix", default="mawi_like")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=32)
@@ -516,8 +529,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--impl", default="auto",
                     choices=("auto", "ref", "kernel", "plain"),
                     help="kernel = the CUDA kernels (CUDA only); plain = "
-                         "their plain PyTorch versions; ref = the oracles; "
-                         "auto = kernel on cuda, ref on cpu")
+                         "their plain PyTorch versions; ref = the oracles "
+                         "(lm: the per-expert MoE product); auto = kernel "
+                         "on cuda, ref on cpu")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (cuda or cpu)")
     ap.add_argument("--migrate", default="off",
@@ -531,11 +545,104 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reps", type=int, default=5,
                     help="min-of-N repetitions for the headline timing")
     ap.add_argument("--seed", type=int, default=0)
+    # lm-mode arguments
+    ap.add_argument("--arch", default=None,
+                    help="lm mode: architecture id (repro_torch.configs)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="lm mode: the config's CPU test scale")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--n-layers", type=int, default=0, dest="n_layers",
+                    help="lm mode: cut the depth to this many layers at "
+                         "full width (0 = the config's own)")
     return ap
+
+
+def serve_lm(args) -> dict:
+    """Prefill ``--batch`` random prompts of ``--prompt-len`` tokens, then
+    ``--gen`` - 1 greedy decode steps (argmax, the first index on ties).
+    Returns the generated tokens [B, gen] and what a caller checks: the
+    parameters, the prompts, the prefill logits, the config and the
+    synchronized host times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import resolve_device
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    if not args.arch:
+        raise SystemExit("--arch is required in lm mode")
+    dev = resolve_device(args.device)
+    impl = args.impl
+    if impl == "auto":
+        impl = "kernel" if dev.type == "cuda" else "ref"
+    if impl == "kernel" and dev.type != "cuda":
+        raise SystemExit("--impl kernel needs --device cuda; use --impl "
+                         "plain for K9's plain version on the CPU")
+    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = dataclasses.replace(
+        cfg, moe_use_kernel=impl in ("kernel", "plain"),
+        moe_plain=impl == "plain",
+        n_layers=args.n_layers or cfg.n_layers)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    params = init_params(torch.Generator(device=dev).manual_seed(args.seed),
+                         cfg)
+    n_params = cfg.param_count(params)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    offset = cfg.vision_tokens if cfg.frontend == "vision" else 0
+    S_max = P + G + offset
+    rng = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=rng, device=dev)
+    vis = None
+    if cfg.frontend == "vision":
+        vis = torch.randn((B, cfg.vision_tokens, cfg.vision_dim),
+                          generator=rng, device=dev)
+
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, prompts, S_max,
+                             cache_dtype=torch.float32, vision_embeds=vis)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    prefill_logits = logits
+
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for i in range(G - 1):
+        pos = torch.full((B,), offset + P + i, dtype=torch.int32,
+                         device=dev)
+        logits, caches = decode_step(params, cfg, tok, caches, pos)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        out_tokens.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t0
+
+    gen = torch.cat(out_tokens, dim=1).cpu().numpy()
+    tps = B * (G - 1) / max(t_decode, 1e-9)
+    print(f"[serve] arch={cfg.name} batch={B} prompt={P} gen={G} "
+          f"layers={cfg.n_layers} params={n_params} device={dev} "
+          f"impl={impl}")
+    print(f"[serve] prefill {t_prefill * 1e3:.1f} ms; decode "
+          f"{t_decode * 1e3:.1f} ms ({tps:.1f} tok/s)")
+    print(f"[serve] sample generations (first 2 rows): {gen[:2].tolist()}")
+    if not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError("generated a token outside the vocabulary")
+    return {"tokens": gen, "params": params, "n_params": n_params,
+            "prompts": prompts, "prefill_logits": prefill_logits,
+            "cfg": cfg, "S_max": S_max, "t_prefill": t_prefill,
+            "t_decode": t_decode, "tok_per_s": tps}
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.mode == "lm":
+        return serve_lm(args)
     return serve_spmv(args)
 
 

@@ -1,4 +1,4 @@
-"""repro_torch CUDA kernels (K1–K7 and the carry step) against their plain
+"""repro_torch CUDA kernels (K1–K9 and the carry step) against their plain
 PyTorch versions, on the card. Every test here carries the
 ``cuda`` marker and skips without a CUDA device. The file imports no JAX,
 so it runs on a machine with a card:
@@ -18,6 +18,7 @@ from repro_torch.data import matrices as TM
 from repro_torch.kernels import bsr_spmv as TBSR
 from repro_torch.kernels import coo_to_tiled
 from repro_torch.kernels import merge_spmv as TMS
+from repro_torch.kernels import moe_group_matmul as TK9
 from repro_torch.kernels import ops as TOPS
 from repro_torch.spmm import kernels as TK
 from repro_torch.spmm import (coo_to_sellcs, csr_spmm, sellcs_spmm, spmm,
@@ -268,3 +269,87 @@ def test_fused_gather_counter_and_mesh_on_one_card(cuda):
         _close(up, ref)
         Xt = torch.randn((coo.shape[0], 8), device=cuda)
         _close(fn(part, Xt, mesh, op="T", **kw), spmm_ref(coo, Xt, op="T"))
+
+
+def _k9_operands(cuda, case):
+    """(tokens, weights, group sizes) of a K9 case: granite's decode shape
+    (256 slots over 32 experts, skewed, bf16 tokens), the reference
+    test's group sizes with empty groups (bf16), or f32 at granite's
+    reduced widths (K = N = 64, padded to 128)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    if case == "decode":
+        T, K, N, E, dt = 256, 1024, 512, 32, torch.bfloat16
+        skew = 1.0 / torch.arange(1, E + 1, device=cuda) ** 1.2
+        experts = torch.multinomial(skew, T, replacement=True,
+                                    generator=gen)
+        sizes = torch.bincount(experts, minlength=E)
+    elif case == "empty_groups":
+        T, K, N, E, dt = 300, 256, 384, 4, torch.bfloat16
+        sizes = torch.tensor([10, 200, 0, 90], device=cuda)
+    else:
+        T, K, N, E, dt = 64, 64, 64, 8, torch.float32
+        sizes = torch.tensor([0, 20, 0, 0, 30, 14, 0, 0], device=cuda)
+    tokens = torch.randn((T, K), generator=gen, device=cuda).to(dt)
+    w = torch.randn((E, K, N), generator=gen, device=cuda) * K ** -0.5
+    return tokens, w, sizes
+
+
+@pytest.mark.parametrize("case", ["decode", "empty_groups", "f32_reduced"])
+def test_grouped_gemm_kernel_matches_plain(cuda, case):
+    tokens, w, sizes = _k9_operands(cuda, case)
+    before = TK9.moe_group_matmul_padded.launches
+    got = TOPS.moe_group_matmul(tokens, w, sizes)
+    assert TK9.moe_group_matmul_padded.launches == before + 1
+    want = TOPS.moe_group_matmul(tokens, w, sizes, plain=True)
+    assert TK9.moe_group_matmul_padded.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(got, want)
+    # the padded layer: tiles past the real length are zero
+    E, Kp = w.shape[0], -(-w.shape[1] // 128) * 128
+    wp = torch.nn.functional.pad(w, (0, -w.shape[2] % 128,
+                                     0, Kp - w.shape[1])).contiguous()
+    gp = TOPS.moe_group_pad(tokens, sizes, E, Kp)
+    out = TK9.moe_group_matmul_padded(gp.lhs, wp, gp.tile_expert,
+                                      n_rows=gp.n_rows)
+    _close(out, TK9.moe_group_matmul_padded_plain(
+        gp.lhs, wp, gp.tile_expert, n_rows=gp.n_rows))
+    assert float(out[int(gp.n_rows):].abs().max()) == 0.0
+
+
+def test_grouped_gemm_wrapper_validates_operands(cuda):
+    lhs = torch.zeros((256, 128), device=cuda)
+    w = torch.zeros((2, 128, 128), device=cuda)
+    te = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        TK9.moe_group_matmul_padded(lhs.half(), w, te)
+    with pytest.raises(TypeError):
+        TK9.moe_group_matmul_padded(lhs, w.double(), te)
+    with pytest.raises(TypeError):
+        TK9.moe_group_matmul_padded(lhs, w, te, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):          # one expert id per m-tile
+        TK9.moe_group_matmul_padded(lhs, w, te[:1])
+    with pytest.raises(ValueError):          # not contiguous
+        TK9.moe_group_matmul_padded(
+            torch.zeros((128, 256), device=cuda).t(), w, te)
+    with pytest.raises(ValueError):          # on another device
+        TK9.moe_group_matmul_padded(lhs, w.cpu(), te)
+
+
+def test_moe_layer_kernel_route_matches_plain(cuda):
+    """One granite MoE layer (d 1024, d_ff 512, 32 experts, top-8) on f32
+    activations: K9 against its plain version through moe_apply, and the
+    per-expert route."""
+    from repro_torch.models import moe as TMOE
+    cfg = TMOE.MoEConfig(1024, 512, 32, 8, use_kernel=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = TMOE.moe_init(gen, cfg)
+    x = torch.randn((2, 64, 1024), generator=gen, device=cuda)
+    before = TK9.moe_group_matmul_padded.launches
+    out, aux = TMOE.moe_apply(p, cfg, x)
+    assert TK9.moe_group_matmul_padded.launches == before + 3
+    plain, aux_p = TMOE.moe_apply(p, cfg._replace(plain=True), x)
+    ragged, _ = TMOE.moe_apply(p, cfg._replace(use_kernel=False), x)
+    assert TK9.moe_group_matmul_padded.launches == before + 3
+    _close(out, plain)
+    _close(out, ragged)
+    assert float(aux) == float(aux_p)

@@ -217,7 +217,12 @@ def test_import_isolation_no_jax_no_repro():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
     assert {"repro_torch.launch.mesh", "repro_torch.spmm.distributed",
-            "repro_torch.core.distributed"} <= set(mods)
+            "repro_torch.core.distributed", "repro_torch.configs.base",
+            "repro_torch.configs.granite_moe_1b_a400m",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.models.model",
+            "repro_torch.models.accounting",
+            "repro_torch.kernels.moe_group_matmul"} <= set(mods)
     code = textwrap.dedent(f"""
         import sys
         for name in ("jax", "jaxlib", "repro"):
