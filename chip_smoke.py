@@ -23,7 +23,8 @@ table and a final status line:
     python3 chip_smoke.py --quick    # same phases at small scales
 
 Phases:
-  1. build the kernels (nvcc, sm_90a, one process per source);
+  1. build the kernels (nvcc, sm_90a, one process per source) and print
+     K6/K7's ``-Xptxas -v`` registers, spills and shared memory;
   2. kernel vs plain version for K1 (SELL-C-σ), K3 (its transpose), K2
      (merge-path SpMM), K4 (merge-path SpMV) and the carry step on
      hhh_like --scale 64, mawi_like --scale 4 and road_like --scale 8 for
@@ -49,14 +50,22 @@ Phases:
      of the eight blocked orders, conversion to the tiled format (seconds,
      tiles, fill, x/y window switches) and one multiply through
      ``core.spmv`` (K5) against K5's plain version and the triplet oracle,
-     timed; on csb and bcohch, ``spmm`` (K6, ``choose_k_tile``'s column
-     tile and a narrower one) and ``kernels.ops.bsr_spmm`` (K7) at
-     k in {8, 32, 33}; mawi_like --scale 4 with K5 at k = 1 and K6/K7 at
-     k = 32; ``serve --algorithm csb`` (a blocked plan, multiplied through
-     its oracle) with every answer checked against the triplet oracle;
-     ``repro_torch.examples.quickstart`` at road_like --scale 8; and
-     hhh_like --scale 64, whose 12.5 M tiles the tiled conversion must
-     refuse with ``MemoryError`` (its 8 GiB density rule);
+     timed; on csb and bcohch, ``spmm`` (K6 at ``choose_k_tile``'s column
+     tile, timed, and at a narrower one, checked: the same launch) and
+     ``kernels.ops.bsr_spmm`` (K7) at k in {8, 32, 33}, and K6/K7 on
+     csb at k = 32 for an X with a NaN and an Inf (the same NaN/Inf
+     places as the plain version, the finite outputs within the
+     tolerance); where K6/K7's time goes on csb
+     at k = 32 and 8 (``k67_breakdown``: K7 beside the same launch on a
+     copy of the stream whose tiles are all zero, which streams the tiles
+     and runs the X pre-pass but walks no X and adds nothing into Y, and
+     beside the zeroing of Y); mawi_like --scale 4 with K5 at k = 1 and
+     K6/K7 at k = 32; ``serve --algorithm csb`` (a blocked plan,
+     multiplied through its oracle) with every answer checked against
+     the triplet oracle; ``repro_torch.examples.quickstart`` at
+     road_like --scale 8; and hhh_like --scale 64, whose 12.5 M tiles the
+     tiled conversion must refuse with ``MemoryError`` (its 8 GiB
+     density rule);
   9. the multi-device schedules, P = 4 shards on cuda:0, k = 32: phase 2's
      hhh_like --scale 64 partitioned by row bands and by merge spans
      (num_chunks = 4), with and without compact X; the row and merge
@@ -95,8 +104,13 @@ Bound: ``bound_ms`` is the larger of the bytes the SpMM function needs
 Y written once; ``spmm_bytes``) over the data-sheet HBM rate and
 2 * nnz * k flops over the float32 peak. K5–K7 also get the bound of
 their format's stream, ``stream_bound_ms``: the tile bytes plus 8 B per
-tile, X and Y over the HBM rate, or the dense tile math (2 * 1024 * k
-flops per tile) over the float32 peak. K8's bound is summed over the
+tile, X and Y over the HBM rate, or the same 2 * nnz * k flops over the
+float32 peak (all that a kernel on this format must compute; K6 and K7
+skip the stored zeros). Their phase-8 rows also carry ``prev_ms`` (the
+card ms before their redesign, where PERF.md has it; not in the
+``kernels`` line, which holds only this run's numbers), the tile
+stream's achieved GB/s and the nonzeros per tile; phase 1 prints their
+``-Xptxas -v`` registers and shared memory. K8's bound is summed over the
 shards: each shard's nonzeros (value and column), one row offset per row,
 its touched X rows with their col_map entries read once, and its rows of
 Y written once. K9's bound counts the real rows (T x top-k) of bf16 lhs
@@ -249,15 +263,40 @@ def spmm_bytes(nnz: int, m: int, n: int, k: int) -> int:
     return nnz * (4 + 4) + (m + 1) * 4 + n * k * 4 + m * k * 4
 
 
+def tile_stream_bytes(ts) -> int:
+    """Bytes of the tile stream: every tile with its two indices."""
+    return ts.num_tiles * (ts.tiles[0].numel() * ts.tiles.element_size()
+                           + 8)
+
+
 def stream_bound_ms(ts, k: int) -> float:
     """Least time for the tiled kernels' own stream: every tile read once
-    with its two indices, X read once, Y written once — or the dense tile
-    math at the float32 peak, whichever is larger."""
+    with its two indices, X read once, Y written once — or the 2 * nnz * k
+    flops of the function at the float32 peak (all that a kernel on this
+    format must compute), whichever is larger."""
     m, n = ts.shape
-    T = ts.num_tiles
-    nbytes = T * (ts.tiles[0].numel() * ts.tiles.element_size() + 8) \
-        + n * k * 4 + m * k * 4
-    return bound_ms(nbytes, 2.0 * T * ts.tiles[0].numel() * k)[0]
+    nbytes = tile_stream_bytes(ts) + n * k * 4 + m * k * 4
+    return bound_ms(nbytes, 2.0 * ts.nnz * k)[0]
+
+
+# K6's and K7's card ms before their redesign (PERF.md, PR 15's chip run:
+# road_like --scale 8, csb, k = 32, choose_k_tile's column tile)
+PREV_MS = {("road_like/csb", MAIN_K, "K6"): 4.955,
+           ("road_like/csb", MAIN_K, "K7"): 4.900}
+
+
+def ptxas_lines(log: str, name: str) -> list:
+    """The ``-Xptxas -v`` lines (registers, shared memory, spills) of
+    every kernel whose mangled name holds ``name``, from an nvcc log."""
+    out, fn = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif fn and name in fn and ("Used" in line or "spill" in line):
+            out.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
@@ -677,7 +716,9 @@ def tiled_rows(label: str, coo, ts, ks, kts, reps: int, A_lib,
     """K6 (per column tile in ``kts(k)``) and K7 at every k of ``ks`` on one
     tile stream: the multiplies through ``spmm`` and ``ops.bsr_spmm``
     counted, then each kernel against its plain version, timed beside
-    the library's CSR multiply and both bounds."""
+    the library's CSR multiply and both bounds. K6 reads the stream once
+    whatever its column tile is, so only ``choose_k_tile``'s is timed; a
+    narrower one is checked against the plain version."""
     import torch
     from repro_torch.kernels import bsr_spmv as BS
     from repro_torch.kernels import ops
@@ -710,18 +751,33 @@ def tiled_rows(label: str, coo, ts, ks, kts, reps: int, A_lib,
                  for kt in kts(k, kt0)]
         cases.append(("K7", k, lambda: BS.bsr_spmm(ts, X),
                       lambda: BS.bsr_spmm_plain(ts, X)))
+        stream_gb = tile_stream_bytes(ts) / 1e9
         for kern, kt, kfn, pfn in cases:
             yk, yp = kfn(), pfn()
             torch.cuda.synchronize()
             err, tol = max_err(yk, yp), tol_of(yp)
+            if kt not in (kt0, k):
+                print(f"[chip_smoke]   {label} {kern} k={k:<2} kt={kt:<2} "
+                      f"max_abs_err={err:.3g} tol={tol:.3g} "
+                      f"{'ok' if err <= tol else 'FAIL'} (the launch of "
+                      f"kt={kt0}, not timed)", flush=True)
+                if err > tol:
+                    raise AssertionError(f"{kern} disagrees with its plain "
+                                         f"version on {label} k={k} kt={kt}:"
+                                         f" {err:.3g} > {tol:.3g}")
+                out.append({"matrix": label, "k": k, "kernel": kern,
+                            "k_tile": kt, "max_abs_err": err, "tol": tol})
+                continue
             ms = cuda_ms(kfn, reps)
             pms = cuda_ms(pfn, max(reps // 2, 1))
             ok = err <= tol
+            prev = PREV_MS.get((label, k, kern))
             print(f"[chip_smoke]   {label} {kern} k={k:<2} kt={kt:<2} "
                   f"max_abs_err={err:.3g} tol={tol:.3g} "
                   f"{'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} plain_ms="
                   f"{pms:.4f} bound_ms={b:.4f} ({by}) stream_bound_ms="
-                  f"{sb:.4f} library_ms={lib_ms:.4f}", flush=True)
+                  f"{sb:.4f} library_ms={lib_ms:.4f} prev_ms={prev} "
+                  f"tile_GB/s={stream_gb / (ms * 1e-3):.1f}", flush=True)
             if not ok:
                 raise AssertionError(f"{kern} disagrees with its plain "
                                      f"version on {label} k={k} kt={kt}: "
@@ -729,11 +785,83 @@ def tiled_rows(label: str, coo, ts, ks, kts, reps: int, A_lib,
             row = {"matrix": label, "k": k, "kernel": kern, "k_tile": kt,
                    "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": pms,
                    "bound_ms": b, "bound_by": by, "stream_bound_ms": sb,
-                   "library_ms": lib_ms}
+                   "library_ms": lib_ms, "prev_ms": prev,
+                   "tile_gb_per_s": stream_gb / (ms * 1e-3),
+                   "nnz_per_tile": ts.nnz / max(ts.num_tiles, 1)}
             out.append(row)
             if main and k == MAIN_K and kern not in table:
                 table[kern] = row
         del X, y6, y7, ref
+    return out
+
+
+def k67_breakdown(label: str, ts, ks, reps: int) -> list:
+    """Where K7's time goes, through its wrapper alone: the multiply
+    beside the same launch on a copy of the stream whose tiles are all
+    zero (the same tile bytes, indices and X pre-pass, no nonzero to walk
+    and no sum to add into Y), and the zeroing of Y inside the wrapper."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import bsr_spmv as BS
+    n = ts.shape[1]
+    mp, _ = ts.padded_shape()
+    zero = dataclasses.replace(ts, tiles=torch.zeros_like(ts.tiles))
+    out = []
+    for k in ks:
+        X = torch.randn((n, k), generator=torch.Generator(
+            device="cuda").manual_seed(79), device="cuda")
+        if bool(BS.bsr_spmm(zero, X).any()):
+            raise AssertionError(f"K7 on zero tiles gave nonzeros ({label})")
+        row = {"matrix": label, "k": k,
+               "kernel_ms": cuda_ms(lambda: BS.bsr_spmm(ts, X), reps),
+               "zero_tiles_ms": cuda_ms(lambda: BS.bsr_spmm(zero, X), reps),
+               "zero_y_ms": cuda_ms(lambda: torch.zeros((mp, k),
+                                                        device="cuda"), reps)}
+        print(f"[chip_smoke]   {label} K7 breakdown k={k}: " + ", ".join(
+            f"{key} {v:.4f}" for key, v in row.items() if key.endswith("_ms")),
+            flush=True)
+        out.append(row)
+    del zero
+    return out
+
+
+def nonfinite_rows(label: str, ts, k: int) -> list:
+    """K6 and K7 against their plain versions for an X with a NaN and an
+    Inf: both must reach the same outputs (every row of every stored
+    tile over their 128-row X blocks, through the stored zeros), and the
+    finite outputs agree within the usual tolerance."""
+    import torch
+    from repro_torch.kernels import bsr_spmv as BS
+    from repro_torch.spmm import kernels as SK
+    n = ts.shape[1]
+    X = torch.randn((n, k), generator=torch.Generator(
+        device="cuda").manual_seed(78), device="cuda")
+    X[n // 3, 0] = float("nan")
+    X[2 * n // 3, k - 1] = float("inf")
+    out = []
+    for kern, kfn, pfn in (
+            ("K6", lambda: SK.tiled_spmm(ts, X),
+             lambda: SK.tiled_spmm_plain(ts, X)),
+            ("K7", lambda: BS.bsr_spmm(ts, X),
+             lambda: BS.bsr_spmm_plain(ts, X))):
+        yk, yp = kfn(), pfn()
+        torch.cuda.synchronize()
+        fin = yp.isfinite()
+        same = (torch.equal(yk.isnan(), yp.isnan())
+                and torch.equal(yk.isinf(), yp.isinf())
+                and torch.equal(yk[yk.isinf()], yp[yp.isinf()]))
+        err, tol = max_err(yk[fin], yp[fin]), tol_of(yp[fin])
+        print(f"[chip_smoke]   {label} {kern} k={k} non-finite X: "
+              f"{int(yp.isnan().sum())} NaN, {int(yp.isinf().sum())} Inf "
+              f"outputs, same places {same}, finite max_abs_err={err:.3g} "
+              f"tol={tol:.3g}", flush=True)
+        if not same or err > tol or not bool((~fin).any()):
+            raise AssertionError(f"{kern} disagrees with its plain version "
+                                 f"on {label} with a non-finite X")
+        out.append({"matrix": label, "k": k, "kernel": kern,
+                    "nan": int(yp.isnan().sum()),
+                    "inf": int(yp.isinf().sum()), "same_places": same,
+                    "max_abs_err": err, "tol": tol})
     return out
 
 
@@ -820,6 +948,10 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
             lambda k, kt0: [kt0] + ([kt0 // 4] if kt0 >= 4 else []), reps,
             A_lib,
             launches, table, main=(algo == "csb"))
+        if algo == "csb":
+            nonfinite = nonfinite_rows(f"road_like/{algo}", ts, MAIN_K)
+            breakdown = k67_breakdown(f"road_like/{algo}", ts, (MAIN_K, 8),
+                                      reps)
         del ts
         torch.cuda.empty_cache()
     del A_lib
@@ -937,7 +1069,8 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
     secs = time.perf_counter() - t_phase
     print(f"[chip_smoke] blocked phase {secs:.1f} s; launches {launches}",
           flush=True)
-    return {"orders": orders, "spmm": spmm_rows, "serve": serve_row,
+    return {"orders": orders, "spmm": spmm_rows, "nonfinite": nonfinite,
+            "k67_breakdown": breakdown, "serve": serve_row,
             "quickstart": quick_row, "dense_refused": refused,
             "launches": launches, "seconds": secs}
 
@@ -1602,6 +1735,11 @@ def main(argv=None) -> int:
     print(f"[chip_smoke] build {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'})",
           flush=True)
+    report = ptxas_lines(_lib.BUILD_LOGS.get("tiled", ""),
+                         "tiled_spmm_kernel")
+    for line in report or ["the library was built before this run: no "
+                           "report"]:
+        print(f"[chip_smoke] K6/K7 ptxas: {line}", flush=True)
 
     # phase 2: kernels vs plain versions
     div = 64.0 if args.quick else 1.0
@@ -1689,8 +1827,8 @@ def main(argv=None) -> int:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"]}
-        for extra in ("stream_bound_ms", "per_shard_ms", "decode_ms",
-                      "decode_plain_ms", "decode_bound_ms",
+        for extra in ("stream_bound_ms", "tile_gb_per_s", "per_shard_ms",
+                      "decode_ms", "decode_plain_ms", "decode_bound_ms",
                       "decode_library_ms"):
             if extra in row:
                 entry[extra] = row[extra]

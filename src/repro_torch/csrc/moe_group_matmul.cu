@@ -21,7 +21,12 @@
 //     or TF32 tensor-core product would round the f32 weights that the
 //     reference multiplies exactly, so the f32 FMA rate is the honest peak.
 // Design (simple and right first):
-//   * One 256-thread block per (128-row m-tile, 128-column n-tile); the
+//   * One 256-thread block per (128-row m-tile, 128-column n-tile), on a
+//     1-D grid (up to 2^31 - 1 blocks, so T_pad has no practical cap) with
+//     the n-tiles of one m-tile adjacent. The m-tiles past the real length
+//     then start last: at decode (136 blocks on 132 SMs) the blocks that
+//     share an SM are ones that exit at once (the m-tiles on grid.x and
+//     the n-tiles on grid.y slowed a decode layer; PERF.md, PR 16). The
 //     block reads its own tile_expert entry (no scalar prefetch) and
 //     clamps it to [0, E), as the reference's gathers clamp.
 //   * The K loop goes in slabs of 32: the lhs slab (converted to f32) is
@@ -163,8 +168,10 @@ moe_group_matmul_kernel(const typename ASlab<LT>::T* __restrict__ lhs,
 
   const int t = threadIdx.x;
   const int tx = t & 15, ty = t >> 4;
-  const int col0 = blockIdx.x * kBN;
-  const long long row0 = (long long)blockIdx.y * kBM;
+  const int n_tiles = N / kBN;
+  const int m_tile = blockIdx.x / n_tiles;
+  const int col0 = (blockIdx.x % n_tiles) * kBN;
+  const long long row0 = (long long)m_tile * kBM;
   // the thread's 8 rows and 8 columns, as two runs of 4
   const int rA = ty * 4, rB = 64 + ty * 4;
   const int cA = tx * 4, cB = 64 + tx * 4;
@@ -179,7 +186,7 @@ moe_group_matmul_kernel(const typename ASlab<LT>::T* __restrict__ lhs,
     }
     return;
   }
-  int e = __ldg(tile_expert + blockIdx.y);
+  int e = __ldg(tile_expert + m_tile);
   e = e < 0 ? 0 : (e >= E ? E - 1 : e);
   const float* w = rhs + (long long)e * K * N;
 
@@ -229,7 +236,9 @@ template <int LT>
 void launch(const void* lhs, const float* rhs, const int* tile_expert,
             const int* n_rows, float* out, int t_pad, int K, int N, int E,
             cudaStream_t s) {
-  const dim3 grid(N / kBN, t_pad / kBM);
+  // one 1-D grid, the n-tiles of an m-tile adjacent (as launched before):
+  // up to 2^31 - 1 blocks, so no 65,535 cap on the m-tiles
+  const dim3 grid((unsigned)((long long)(t_pad / kBM) * (N / kBN)));
   moe_group_matmul_kernel<LT><<<grid, kThreads, 0, s>>>(
       static_cast<const typename ASlab<LT>::T*>(lhs), rhs, tile_expert,
       n_rows, out, K, N, E);
@@ -248,7 +257,7 @@ int moe_group_matmul_launch(const void* lhs, int lhs_dtype, const float* rhs,
                             float* out, int t_pad, int k, int n, int e,
                             void* stream) {
   if (t_pad % kBM || k % kBK || n % kBN || k <= 0 || e <= 0 ||
-      t_pad / kBM > 65535)
+      (long long)(t_pad / kBM) * (n / kBN) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   if (t_pad == 0 || n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;

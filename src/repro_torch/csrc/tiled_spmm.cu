@@ -15,39 +15,76 @@
 // Bound on this card: the function needs the CSR bytes of the matrix
 // plus X and Y; the format itself streams 4 KiB (f32) per stored tile,
 // 100-1000x more at fill ratios of 1e-3..1e-2, so the stream is what a
-// kernel of this format can approach: tile bytes over 3.35 TB/s. At
-// k = 32 the dense tile math (2 * 1024 * k flops per tile) is as large as
-// that stream time at the f32 FMA rate, so K6/K7 sit near the ridge.
+// kernel of this format can approach: tile bytes over 3.35 TB/s. The
+// arithmetic the function needs is 2 * nnz * k flops, far below that
+// stream time at the f32 FMA rate; the dense tile math (2 * 1024 * k per
+// tile) would be ~80x more at road_like's ~13 nonzeros a tile.
 //
 // Design:
 //   * Order and reduction. The TPU grid runs in order and every step adds
-//     into one y. Here each block (K6/K7) or warp (K5) takes a contiguous
-//     run of the stored stream, so the visit order of the paper algorithm
-//     that ordered the tiles stays the stream order. Consecutive tiles of
-//     one tile-row (a row-ordered stream) are summed in registers; when
-//     the tile-row changes the sums are reduced over the warp and added
-//     into Y with f32 atomic adds (RED) into a Y the wrapper zeroed. So
-//     the number of atomics follows the stream's y-window switches, and
-//     the order of the adds, and the last bits, vary from run to run.
+//     into one y. Here a warp (K5: 8 tiles) or a block (K6/K7: chunks of 8
+//     tiles) takes contiguous runs of the stored stream, so the visit
+//     order of the paper algorithm that ordered the tiles stays the stream
+//     order within a run.
+//     Consecutive tiles of one tile-row (a row-ordered stream) are summed
+//     in registers; when the tile-row changes the sums are reduced over
+//     the warp and added into Y with f32 atomic adds (RED) into a Y the
+//     wrapper zeroed. So the number of atomics follows the stream's
+//     y-window switches, and the order of the adds, and the last bits,
+//     vary from run to run.
 //   * K5: one warp per run of 8 tiles. Each lane takes 4 of the 128 tile
 //     columns: one float4 of x and, per tile row, 4 tile values (a float4
 //     of f32 or 8 bytes of bf16), with 8 row sums in registers.
-//   * K6/K7: one 256-thread block per (run of 8 tiles, column tile). The
-//     tile is staged in shared memory as f32 (one 16-byte load per
-//     thread); warp i owns tile row i. Columns go in passes of up to 32:
-//     a pass of w columns rounds w up to a power of two cp, lane l takes
-//     column l % cp and every (32/cp)-th tile column from l / cp, so a
-//     warp reads 32/cp consecutive X rows of cp consecutive floats
-//     (coalesced when cp = k), and the shares are summed with shuffles at
-//     the flush. Up to 4 passes (128 columns) keep their sums in
-//     registers per staged tile; a wider column tile stages each tile
-//     again per 128 columns.
+//   * K6/K7 work on the stored nonzeros, not on the dense tile: at
+//     road_like's ~13 nonzeros of 1,024 a dense 8x128 product spends ~99 %
+//     of its FMAs and X loads on stored zeros. A block is 2 warps; warp w
+//     owns tile rows 4w .. 4w+3 of every tile the block takes. For each of
+//     its rows, lane l reads columns 4l .. 4l+3, three ballots of the
+//     lanes' nonzero counts give each lane its place, and the warp writes
+//     the row's nonzero columns to the row's list in shared memory. The
+//     lanes then walk the lists: a pass covers up to 32 output columns,
+//     lane l takes column l % cp (cp = 32, or k rounded up to a power of
+//     two when k < 32), and the 32 / cp lane shares take every (32/cp)-th
+//     entry, so an entry costs one coalesced X row segment and one FMA per
+//     column. A walk pass takes entries of all four rows at once (up to 8
+//     X loads a lane in flight); a tile with a long row (a dense row)
+//     walks row by row. The f32 sums of the four rows stay in registers
+//     over consecutive tiles of one tile-row (for k <= 128); at the flush
+//     the shares are summed with shuffles. A wider k walks the lists once
+//     per 128 columns and adds each tile's sums at once.
+//   * Non-finite X. The dense tile product carries a NaN or Inf of X
+//     through a stored zero (0 * Inf = NaN), and so do the reference and
+//     the plain version. Skipping a zero is exact only where the 128-row X
+//     block, rounded to the tile dtype, is finite, so a pre-pass
+//     (x_block_finite_kernel, X read once) writes one flag per X block on
+//     the device, with no host sync, and a tile over a non-finite block
+//     also walks its zero positions. The answer then equals the dense
+//     product's, NaN and Inf included.
+//   * The stream. The grid is persistent: the card's SMs times the blocks
+//     that fit on one. The stream is dealt in chunks of 8 consecutive
+//     tiles, round-robin over the blocks: the visit order holds within a
+//     chunk, the blocks move through the stream together (the X and Y rows
+//     they touch stay in L2), and a long tile-row (mawi_like's dense row,
+//     2,048 tiles) is spread over many blocks. Each warp streams its four
+//     rows of the block's tiles (2 KiB f32, 1 KiB bf16) and the tiles' row
+//     and column indices through a ring of 3 (f32) or 4 (bf16) slots in
+//     shared memory with cp.async, so the next tiles are in flight while
+//     one is used. The warps never wait for each other (no
+//     __syncthreads). Trial builds on the H100 (PERF.md, PR 16) ran slower
+//     with one, two or eight rows per warp, a fourth ring slot or chunks
+//     of 32 tiles: fewer warps fit on an SM, each did more fixed work per
+//     row, or the blocks drifted apart in the stream.
+//   * The stream is read once per launch whatever K6's column tile kt is:
+//     every column of a staged row is done by the warp that holds it, so
+//     the entry point does not take kt.
 //   * X rows past n (the ragged last tile column) are read as zero; Y is
 //     allocated with the padded row count m_pad = 8 * ceil(m / 8).
-// Simple and correct first: FP32 FMA, no tensor cores, no TMA or double
-// buffering (later, measured changes; see PERF.md).
+// FP32 FMA, no tensor cores: they would round X or the tile, and at ~13
+// nonzeros a tile they would not pay.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -161,81 +198,409 @@ tiled_spmv_kernel(const typename Tile<DT>::T* __restrict__ tiles,
 }
 
 // ------------------------------------------------------------ K6 / K7 ----
-constexpr int kSpmmThreads = 256;  // 8 warps: warp i owns tile row i
-constexpr int kSpmmRun = 8;        // consecutive tiles per block
-constexpr int kPassCols = 32;      // columns per pass (one warp wide)
-constexpr int kMaxPasses = 4;      // passes summed per staged tile
+constexpr int kRows = 4;                         // tile rows a warp owns
+constexpr int kSpmmWarps = kTileR / kRows;       // warps per block
+constexpr int kChunk = 8;                        // consecutive tiles per deal
+constexpr int kPassCols = 32;                    // output columns per pass
+constexpr int kLoadsInFlight = 8;                // X loads per lane per pass
+constexpr int kFiniteThreads = 256;              // the X pre-pass block
 
+// ring slots per warp: kRows rows of a tile each (2 KiB f32, 1 KiB bf16)
+template <int DT> struct Ring { static constexpr int kStages = 4; };
+template <> struct Ring<kF32> { static constexpr int kStages = 3; };
+
+// Asynchronous 16-byte copy global -> shared (cp.async; bypasses L1: the
+// tile stream is read once), and the 4-byte form for the tile indices.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four consecutive tile values (16- or 8-byte aligned) from the ring, and
+// one
+__device__ __forceinline__ float4 stage4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 stage4(const unsigned short* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(raw.x << 16),
+                     __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16),
+                     __uint_as_float(raw.y & 0xffff0000u));
+}
+__device__ __forceinline__ float stage1(const float* p) { return *p; }
+__device__ __forceinline__ float stage1(const unsigned short* p) {
+  return __uint_as_float((unsigned)*p << 16);
+}
+
+// x rounded to the tile dtype; a NaN stays a NaN (K5's rounding assumes a
+// finite x, and a NaN's payload could carry into the sign)
+template <int DT> __device__ __forceinline__ float x_in(float v) {
+  return v == v ? Tile<DT>::round_x(v) : v;
+}
+
+// finite[b] = 1 when every value of X block b (rows b*128 : +128, all k
+// columns, contiguous in X [n, k]) is finite after the rounding to the
+// tile dtype, else 0. One block per X block.
 template <int DT>
-__global__ void __launch_bounds__(kSpmmThreads)
+__global__ void __launch_bounds__(kFiniteThreads)
+x_block_finite_kernel(const float* __restrict__ x, int* __restrict__ finite,
+                      int n, int k) {
+  const long long r0 = (long long)blockIdx.x * kTileC;
+  const long long e0 = r0 * k;                   // a multiple of 128
+  const long long e1 = min(r0 + kTileC, (long long)n) * k;
+  const long long ev = e0 + ((e1 - e0) & ~3LL);
+  int ok = 1;
+  for (long long e = e0 + 4LL * threadIdx.x; e < ev;
+       e += 4LL * kFiniteThreads) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x + e));
+    ok &= isfinite(x_in<DT>(v.x)) & isfinite(x_in<DT>(v.y)) &
+          isfinite(x_in<DT>(v.z)) & isfinite(x_in<DT>(v.w));
+  }
+  for (long long e = ev + threadIdx.x; e < e1; e += kFiniteThreads)
+    ok &= isfinite(x_in<DT>(x[e]));
+  ok = __syncthreads_and(ok);
+  if (threadIdx.x == 0) finite[blockIdx.x] = ok ? 1 : 0;
+}
+
+// A lane's output column in each pass of one sweep (columns g : +NP*32).
+template <int NP> struct Cols {
+  int col[NP];
+  bool on[NP];      // col < k
+};
+
+template <int NP>
+__device__ __forceinline__ Cols<NP> cols_of(int g, int jl, int k) {
+  Cols<NP> cs;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    cs.col[q] = g + q * kPassCols + jl;
+    cs.on[q] = cs.col[q] < k;
+  }
+  return cs;
+}
+
+// One pass over the warp's rows of a staged tile: entries e0, e0 +
+// stride, ... (U of them) of every row's list, or, for ZEROS, the
+// positions e0, ... whose stored value is zero. The tile values and every
+// X load first, then the FMAs into the row sums acc[row]. Entries past a
+// row's count add 0 * 0.
+template <int DT, int NP, int U, bool ZEROS>
+__device__ __forceinline__ void walk_pass(
+    const typename Tile<DT>::T* tile, const unsigned short* lst,
+    const int (&cnt)[kRows], int e0, int stride, const float* xb,
+    int rows_left, int k, const Cols<NP>& cs, float (&acc)[kRows][NP]) {
+  float a[kRows][U], xv[kRows][U][NP];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * stride;
+      bool ok = e < (ZEROS ? kTileC : cnt[rr]);
+      const int col = !ok ? 0 : (ZEROS ? e : (int)lst[rr * kTileC + e]);
+      a[rr][u] = ok ? stage1(tile + rr * kTileC + col) : 0.f;
+      if (ZEROS) ok = ok && a[rr][u] == 0.f;
+      ok = ok && col < rows_left;                // X rows past n are zero
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        xv[rr][u][q] = 0.f;
+        if (ok && cs.on[q]) xv[rr][u][q] = __ldg(xb + col * k + cs.col[q]);
+      }
+    }
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        acc[rr][q] = fmaf(a[rr][u], x_in<DT>(xv[rr][u][q]), acc[rr][q]);
+}
+
+// U entries e0, e0 + stride, ... of row rr's list into acc (its sums).
+template <int DT, int NP, int U>
+__device__ __forceinline__ void walk_row(
+    const typename Tile<DT>::T* tile, const unsigned short* lst, int rr,
+    int cnt, int e0, int stride, const float* xb, int rows_left, int k,
+    const Cols<NP>& cs, float (&acc)[NP]) {
+  float a[U], xv[U][NP];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int e = e0 + u * stride;
+    const bool ok = e < cnt;
+    const int col = ok ? (int)lst[rr * kTileC + e] : 0;
+    a[u] = ok ? stage1(tile + rr * kTileC + col) : 0.f;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      xv[u][q] = 0.f;
+      if (ok && col < rows_left && cs.on[q])
+        xv[u][q] = __ldg(xb + col * k + cs.col[q]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      acc[q] = fmaf(a[u], x_in<DT>(xv[u][q]), acc[q]);
+}
+
+// Every entry of the lane's share (share, share + shares, ...), in passes
+// of about kLoadsInFlight X loads a lane over all rows at once; `most` is
+// the longest row list. A tile with a long row (a dense row) walks row by
+// row instead, so its passes load only that row's entries.
+template <int DT, int NP, bool ZEROS>
+__device__ __forceinline__ void walk(
+    const typename Tile<DT>::T* tile, const unsigned short* lst,
+    const int (&cnt)[kRows], int most, int share, int shares,
+    const float* xb, int rows_left, int k, const Cols<NP>& cs,
+    float (&acc)[kRows][NP]) {
+  constexpr int U = kLoadsInFlight / (kRows * NP) > 1
+                        ? kLoadsInFlight / (kRows * NP) : 1;
+  constexpr int UR = kLoadsInFlight / NP;
+  if (!ZEROS && most > 2 * U * shares) {
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr)
+      for (int e0 = share; e0 < cnt[rr]; e0 += UR * shares)
+        walk_row<DT, NP, UR>(tile, lst, rr, cnt[rr], e0, shares, xb,
+                             rows_left, k, cs, acc[rr]);
+    return;
+  }
+  for (int e0 = share; e0 < most; e0 += U * shares)
+    walk_pass<DT, NP, U, ZEROS>(tile, lst, cnt, e0, shares, xb, rows_left,
+                                k, cs, acc);
+}
+
+// Add the sums of the warp's rows in `rows` (a warp-uniform bit mask) into
+// Y rows y0 + row, summed over the lane shares first; every sum restarts
+// from zero.
+template <int NP>
+__device__ __forceinline__ void flush(float (&acc)[kRows][NP], unsigned rows,
+                                      float* __restrict__ y, long long y0,
+                                      int k, const Cols<NP>& cs, int cp,
+                                      bool lead) {
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    if (rows >> rr & 1u) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        float v = acc[rr][q];
+        for (int off = cp; off < 32; off <<= 1)
+          v += __shfl_xor_sync(kFull, v, off);
+        if (cs.on[q] && lead) atomicAdd(y + (y0 + rr) * k + cs.col[q], v);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NP; ++q) acc[rr][q] = 0.f;
+  }
+}
+
+// kSpmmWarps warps per block, warp w owning tile rows w * kRows .. +kRows
+// of every tile the block takes; the warps never wait for each other.
+template <int DT, int NP>
+__global__ void __launch_bounds__(kSpmmWarps * 32)
 tiled_spmm_kernel(const typename Tile<DT>::T* __restrict__ tiles,
                   const int* __restrict__ tile_rows,
                   const int* __restrict__ tile_cols,
-                  const float* __restrict__ x, float* __restrict__ y,
-                  int num_tiles, int n, int k, int kt) {
-  __shared__ float4 stage[kTileElems / 4];         // one tile, f32, 4 KiB
-  const long long t0 = (long long)blockIdx.x * kSpmmRun;
-  const long long t1 = min(t0 + kSpmmRun, (long long)num_tiles);
-  const int i = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int j_begin = blockIdx.y * kt;
-  const int j_end = min(j_begin + kt, k);
-  const float* srow = reinterpret_cast<const float*>(stage) + i * kTileC;
+                  const float* __restrict__ x,
+                  const int* __restrict__ finite, float* __restrict__ y,
+                  int num_tiles, int n, int k) {
+  using T = typename Tile<DT>::T;
+  constexpr int S = Ring<DT>::kStages;
+  constexpr int kElems = kRows * kTileC;         // a warp's part of a tile
+  constexpr int kCopies = kElems * (int)sizeof(T) / (16 * 32);
+  static_assert(kCopies >= 1, "a lane copies 16-byte pieces");
+  __shared__ __align__(16) T ring[kSpmmWarps][S][kElems];
+  __shared__ __align__(8) int head[kSpmmWarps][S][2];  // tile row, column
+  // per row, the columns of its nonzeros
+  __shared__ unsigned short lists[kSpmmWarps][kElems];
 
-  for (int g = j_begin; g < j_end; g += kPassCols * kMaxPasses) {
-    const int g_end = min(g + kPassCols * kMaxPasses, j_end);
-    const int passes = (g_end - g + kPassCols - 1) / kPassCols;
-    int cp[kMaxPasses], col[kMaxPasses], share[kMaxPasses];
-    bool on[kMaxPasses];
-    float acc[kMaxPasses];
+  const int wi = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int G = gridDim.x;
+  const int b = blockIdx.x;
+  const int chunks = (int)(((long long)num_tiles + kChunk - 1) / kChunk);
+  if (b >= chunks) return;                       // the whole block
+  // this block's chunks are b, b + G, ...; P tiles in all
+  const int mine = (chunks - 1 - b) / G + 1;
+  const int last = b + (mine - 1) * G;
+  const int P = (mine - 1) * kChunk + min(kChunk, num_tiles - last * kChunk);
+
+  // copy the warp's rows of local tile p, with the tile's indices, into
+  // ring slot s; one commit group per p (empty past the end, so the group
+  // count is fixed)
+  auto issue = [&](int p, int s) {
+    if (p < P) {
+      const long long t =
+          (long long)(b + (p / kChunk) * G) * kChunk + p % kChunk;
+      const char* src = reinterpret_cast<const char*>(
+          tiles + t * kTileElems + wi * kElems);
+      char* dst = reinterpret_cast<char*>(ring[wi][s]);
 #pragma unroll
-    for (int p = 0; p < kMaxPasses; ++p) {
-      const int jb = g + p * kPassCols;
-      const int width = max(0, min(kPassCols, g_end - jb));
-      int c = 1;
-      while (c < width) c <<= 1;
-      cp[p] = c;
-      col[p] = jb + (lane & (c - 1));
-      share[p] = lane / c;
-      on[p] = (lane & (c - 1)) < width;
-      acc[p] = 0.f;
+      for (int j = 0; j < kCopies; ++j)
+        cp_async16(dst + (j * 32 + lane) * 16, src + (j * 32 + lane) * 16);
+      if (lane == 0) {
+        cp_async4(&head[wi][s][0], tile_rows + t);
+        cp_async4(&head[wi][s][1], tile_cols + t);
+      }
     }
-    int row = tile_rows[t0];
-    for (long long t = t0; t <= t1; ++t) {
-      const int r = t < t1 ? tile_rows[t] : -1;
-      if (r != row) {                              // flush (uniform)
+    cp_async_commit();
+  };
+
+  // passes: k <= 32 takes one pass of cp = k rounded up to a power of two
+  // columns and 32 / cp lane shares; a wider k takes 32-column passes
+  int cp = kPassCols;
+  if (NP == 1)
+    for (cp = 1; cp < k; cp <<= 1) {}
+  const int shares = kPassCols / cp;
+  const int share = lane / cp;
+  const int jl = lane & (cp - 1);
+  const bool lead = share == 0;
+  const bool one_sweep = k <= NP * kPassCols;    // sums kept across tiles
+  const Cols<NP> cs = cols_of<NP>(0, jl, k);
+  const unsigned lt = (1u << lane) - 1u;
+  const unsigned all = (1u << kRows) - 1u;
+  unsigned short* lst = lists[wi];
+  float acc[kRows][NP];
 #pragma unroll
-        for (int p = 0; p < kMaxPasses; ++p) {
-          if (p >= passes) break;
-          float v = acc[p];
-          for (int off = cp[p]; off < 32; off <<= 1)
-            v += __shfl_xor_sync(kFull, v, off);
-          if (on[p] && share[p] == 0)
-            atomicAdd(y + ((long long)row * kTileR + i) * k + col[p], v);
-          acc[p] = 0.f;
-        }
+  for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+    for (int q = 0; q < NP; ++q) acc[rr][q] = 0.f;
+  int row = -1;
+  unsigned dirty = 0;                            // the warp's rows with sums
+
+  for (int p = 0; p < S - 1; ++p) issue(p, p);
+  int s = 0, s_next = S - 1;                     // slots of p and p + S - 1
+  for (int p = 0; p < P; ++p) {
+    issue(p + S - 1, s_next);
+    cp_async_wait<S - 1>();                      // local tile p has landed
+    __syncwarp();
+    const int r = head[wi][s][0];
+    const int c = head[wi][s][1];
+    const int fin = __ldg(finite + c);           // read after the walk
+    const T* tile = ring[wi][s];
+    // per row, list the columns of the nonzeros: lane l holds columns
+    // 4l .. 4l+3; its place in the row's list is the sum of the counts
+    // of the lanes below it, bit by bit over ballots
+    int cnt[kRows];
+    int most = 0;
+    unsigned touched = 0;
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const float4 v = stage4(tile + rr * kTileC + lane * 4);
+      const unsigned nib = (unsigned)(v.x != 0.f) |
+                           (unsigned)(v.y != 0.f) << 1 |
+                           (unsigned)(v.z != 0.f) << 2 |
+                           (unsigned)(v.w != 0.f) << 3;
+      const int mine_n = __popc(nib);
+      const unsigned b0 = __ballot_sync(kFull, mine_n & 1);
+      const unsigned b1 = __ballot_sync(kFull, mine_n & 2);
+      const unsigned b2 = __ballot_sync(kFull, mine_n & 4);
+      int at = __popc(b0 & lt) + 2 * __popc(b1 & lt) + 4 * __popc(b2 & lt);
+      cnt[rr] = __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
+      most = max(most, cnt[rr]);
+      touched |= cnt[rr] ? 1u << rr : 0u;
+      unsigned short* L = lst + rr * kTileC;
+      const int c0 = lane * 4;
+      if (nib & 1u) L[at++] = (unsigned short)c0;
+      if (nib & 2u) L[at++] = (unsigned short)(c0 + 1);
+      if (nib & 4u) L[at++] = (unsigned short)(c0 + 2);
+      if (nib & 8u) L[at] = (unsigned short)(c0 + 3);
+    }
+    __syncwarp();
+    const long long x0 = (long long)c * kTileC;
+    const float* xb = x + x0 * k;
+    const int rows_left = (int)min((long long)kTileC, (long long)n - x0);
+    if (one_sweep) {
+      if (r != row) {
+        if (row >= 0)
+          flush<NP>(acc, dirty, y, (long long)row * kTileR + wi * kRows, k,
+                    cs, cp, lead);
+        dirty = 0;
         row = r;
       }
-      if (t == t1) break;
-      __syncthreads();                             // readers of the last tile
-      stage[threadIdx.x] =
-          Tile<DT>::load4(tiles + t * kTileElems + threadIdx.x * 4);
-      __syncthreads();
-      const long long x0 = (long long)tile_cols[t] * kTileC;
-      const int lim = (int)min((long long)kTileC, (long long)n - x0);
-#pragma unroll
-      for (int p = 0; p < kMaxPasses; ++p) {
-        if (p >= passes || !on[p]) continue;
-        const int stride = kPassCols / cp[p];
-        const float* xp = x + x0 * k + col[p];
-        float a = acc[p];
-#pragma unroll 8
-        for (int l = share[p]; l < lim; l += stride)
-          a = fmaf(srow[l], Tile<DT>::round_x(xp[(long long)l * k]), a);
-        acc[p] = a;
+      walk<DT, NP, false>(tile, lst, cnt, most, share, shares, xb,
+                          rows_left, k, cs, acc);
+      dirty |= touched;
+      // a non-finite X block: the stored zeros count too (0 * Inf =
+      // NaN), as in the dense tile product
+      if (!fin) {
+        walk<DT, NP, true>(tile, lst, cnt, kTileC, share, shares, xb,
+                           rows_left, k, cs, acc);
+        dirty = all;
+      }
+    } else {
+      const long long y0 = (long long)r * kTileR + wi * kRows;
+      for (int g = 0; g < k; g += NP * kPassCols) {
+        const Cols<NP> cg = cols_of<NP>(g, jl, k);
+        walk<DT, NP, false>(tile, lst, cnt, most, share, shares, xb,
+                            rows_left, k, cg, acc);
+        if (!fin)
+          walk<DT, NP, true>(tile, lst, cnt, kTileC, share, shares, xb,
+                             rows_left, k, cg, acc);
+        flush<NP>(acc, fin ? touched : all, y, y0, k, cg, cp, lead);
       }
     }
+    __syncwarp();                                // slot s and the list free
+    s = s + 1 == S ? 0 : s + 1;
+    s_next = s_next + 1 == S ? 0 : s_next + 1;
   }
+  if (one_sweep && row >= 0)
+    flush<NP>(acc, dirty, y, (long long)row * kTileR + wi * kRows, k, cs, cp,
+              lead);
+}
+
+template <int DT, int NP>
+int launch_tiled_spmm(const void* tiles, const int* tile_rows,
+                      const int* tile_cols, const float* x, int* finite,
+                      float* y, int num_tiles, int n, int k, int sm_count,
+                      cudaStream_t s) {
+  static int per_sm = 0;                         // resident blocks per SM
+  if (per_sm == 0) {
+    int got = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &got, tiled_spmm_kernel<DT, NP>, kSpmmWarps * 32, 0);
+    if (e != cudaSuccess) return (int)e;
+    per_sm = got > 0 ? got : 1;
+  }
+  const long long chunks = ((long long)num_tiles + kChunk - 1) / kChunk;
+  const long long grid = std::min(chunks, (long long)sm_count * per_sm);
+  const long long xblocks = ((long long)n + kTileC - 1) / kTileC;
+  x_block_finite_kernel<DT><<<(unsigned)xblocks, kFiniteThreads, 0, s>>>(
+      x, finite, n, k);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  tiled_spmm_kernel<DT, NP><<<(unsigned)grid, kSpmmWarps * 32, 0, s>>>(
+      static_cast<const typename Tile<DT>::T*>(tiles), tile_rows, tile_cols,
+      x, finite, y, num_tiles, n, k);
+  return (int)cudaGetLastError();
+}
+
+template <int DT>
+int launch_tiled_spmm(const void* tiles, const int* tile_rows,
+                      const int* tile_cols, const float* x, int* finite,
+                      float* y, int num_tiles, int n, int k, int sm_count,
+                      cudaStream_t s) {
+  if (k <= kPassCols)
+    return launch_tiled_spmm<DT, 1>(tiles, tile_rows, tile_cols, x, finite,
+                                    y, num_tiles, n, k, sm_count, s);
+  if (k <= 2 * kPassCols)
+    return launch_tiled_spmm<DT, 2>(tiles, tile_rows, tile_cols, x, finite,
+                                    y, num_tiles, n, k, sm_count, s);
+  return launch_tiled_spmm<DT, 4>(tiles, tile_rows, tile_cols, x, finite, y,
+                                  num_tiles, n, k, sm_count, s);
 }
 
 }  // namespace
@@ -265,29 +630,26 @@ int tiled_spmv_launch(const void* tiles, int tile_dtype, const int* tile_rows,
   return (int)cudaGetLastError();
 }
 
-// K6 (kt = the column tile) and K7 (kt = k). tiles as above, x f32[n, k],
-// y f32[m_pad, k] zeroed by the caller. Returns cudaGetLastError().
+// K6 and K7: the same launch, which reads the stream once whatever K6's
+// column tile is. tiles as above, x f32[n, k] (16-byte
+// aligned), finite i32[ceil(n / 128)] scratch, y f32[m_pad, k] zeroed by
+// the caller, sm_count the card's SMs (the persistent grid). Launches the
+// X pre-pass, then the multiply. Returns cudaGetLastError().
 int tiled_spmm_launch(const void* tiles, int tile_dtype, const int* tile_rows,
-                      const int* tile_cols, const float* x, float* y,
-                      int num_tiles, int n, int k, int kt, void* stream) {
+                      const int* tile_cols, const float* x, int* finite,
+                      float* y, int num_tiles, int n, int k, int sm_count,
+                      void* stream) {
   if (num_tiles <= 0 || k <= 0) return 0;
-  if (kt <= 0) return (int)cudaErrorInvalidValue;
-  const long long runs = ((long long)num_tiles + kSpmmRun - 1) / kSpmmRun;
-  const long long col_tiles = ((long long)k + kt - 1) / kt;
-  if (col_tiles > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)runs, (unsigned)col_tiles);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (tile_dtype == kF32) {
-    tiled_spmm_kernel<kF32><<<grid, kSpmmThreads, 0, s>>>(
-        (const float*)tiles, tile_rows, tile_cols, x, y, num_tiles, n, k, kt);
-  } else if (tile_dtype == kBF16) {
-    tiled_spmm_kernel<kBF16><<<grid, kSpmmThreads, 0, s>>>(
-        (const unsigned short*)tiles, tile_rows, tile_cols, x, y, num_tiles,
-        n, k, kt);
-  } else {
+  if (n <= 0 || sm_count <= 0)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tile_dtype == kF32)
+    return launch_tiled_spmm<kF32>(tiles, tile_rows, tile_cols, x, finite, y,
+                                   num_tiles, n, k, sm_count, s);
+  if (tile_dtype == kBF16)
+    return launch_tiled_spmm<kBF16>(tiles, tile_rows, tile_cols, x, finite,
+                                    y, num_tiles, n, k, sm_count, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* repro_error_string(int code) {

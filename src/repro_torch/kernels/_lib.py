@@ -53,14 +53,16 @@ SIGNATURES = {
                                              _P, _I, _I, _P]),
     "merge_carry_fixup_launch": ("merge", [_P, _P, _P, _I, _I, _P]),
     "tiled_spmv_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _I, _I, _P]),
-    "tiled_spmm_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _P]),
+    "tiled_spmm_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _P]),
     "moe_group_matmul_launch": ("moe", [_P, _I, _P, _P, _P, _P, _I, _I,
                                         _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc's output per source of the last verbose build (``-Xptxas=-v``)
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def build_dir() -> Path:
@@ -120,6 +122,7 @@ def build(verbose: bool = False) -> Dict[str, float]:
             errors.append(f"nvcc failed on {SOURCES[name]}:\n{log}")
             continue
         if verbose and log:
+            BUILD_LOGS[name] = log
             print(log)
         os.replace(tmp, target)
         secs[name] = time.perf_counter() - t0
@@ -161,6 +164,20 @@ def check(rc: int, fn: str) -> None:
         msg = library(SIGNATURES[fn][0]).repro_error_string(rc)
         raise RuntimeError(f"{fn}: CUDA error {rc} "
                            f"({msg.decode() if msg else 'unknown'})")
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device`` (a CUDA device), for the kernels
+    that launch a persistent grid."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def stream_of(t: torch.Tensor) -> int:

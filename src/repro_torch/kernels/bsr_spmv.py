@@ -8,11 +8,15 @@
 Both are CUDA C++ in ``repro_torch/csrc/tiled_spmm.cu`` (see its notes for
 the bound and the design); K6, the k-tiled form behind ``spmm()``, is
 ``repro_torch.spmm.kernels.tiled_spmm`` and launches the same entry point
-as K7 with a narrower column tile. As in the Pallas kernels, x is rounded
-to the tile dtype before the product, products accumulate in float32 and
-the result is float32. Each wrapper runs its plain PyTorch version (the
-``*_plain`` functions) only for CPU tensors; a CUDA tensor launches the
-kernel or raises. Launches are counted in ``<wrapper>.launches``.
+as K7: its column tile is checked there and never reaches the kernel,
+which reads the tile stream once for all k columns. A NaN or Inf in X
+reaches the rows of every stored tile over its 128-row block, through
+the tile's stored zeros, as in the reference's dense tile product. As in
+the Pallas kernels, x is rounded to the tile dtype before the product,
+products accumulate in float32 and the result is float32. Each wrapper
+runs its plain PyTorch version (the ``*_plain`` functions) only for CPU
+tensors; a CUDA tensor launches the kernel or raises. Launches are
+counted in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -100,11 +104,10 @@ def _operand(x: torch.Tensor, ndim: int) -> torch.Tensor:
     return x
 
 
-def tiled_spmm_launch(ts: TiledSparse, x: torch.Tensor, kt: int
-                      ) -> torch.Tensor:
-    """Launch the tiled SpMM entry point for X [n, k] with column tile
-    ``kt`` -> f32 [m, k]. Counts nothing: K6 and K7 count their own
-    launches."""
+def tiled_spmm_launch(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
+    """Launch the tiled SpMM entry point for X [n, k] -> f32 [m, k]. The
+    kernel reads the tile stream once for all k columns, so it takes no
+    column tile. Counts nothing: K6 and K7 count their own launches."""
     code = _check_tiled(ts)
     x = _operand(x, 2)
     m, n = ts.shape
@@ -112,14 +115,15 @@ def tiled_spmm_launch(ts: TiledSparse, x: torch.Tensor, kt: int
     k = int(x.shape[1])
     if x.shape[0] != n:
         raise ValueError(f"X must be [{n}, k], got {tuple(x.shape)}")
-    if not 1 <= kt <= k:
-        raise ValueError(f"k_tile must be in [1, {k}], got {kt}")
     y = torch.zeros((mp, k), dtype=torch.float32, device=x.device)
+    # one finite flag per 128-row X block, written by the kernel's pre-pass
+    finite = torch.empty(-(-n // TILE_C), dtype=torch.int32, device=x.device)
     fn = "tiled_spmm_launch"
     _lib.check(_lib.entry(fn)(
         ts.tiles.data_ptr(), code, ts.tile_rows.data_ptr(),
-        ts.tile_cols.data_ptr(), x.data_ptr(), y.data_ptr(), ts.num_tiles,
-        n, k, int(kt), _lib.stream_of(x)), fn)
+        ts.tile_cols.data_ptr(), x.data_ptr(), finite.data_ptr(),
+        y.data_ptr(), ts.num_tiles, n, k, _lib.sm_count(x.device),
+        _lib.stream_of(x)), fn)
     return y[:m]
 
 
@@ -155,7 +159,7 @@ def bsr_spmm(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"X must be [n, R], got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return bsr_spmm_plain(ts, x)
-    y = tiled_spmm_launch(ts, x, int(x.shape[1]))
+    y = tiled_spmm_launch(ts, x)
     bsr_spmm.launches += 1
     return y
 

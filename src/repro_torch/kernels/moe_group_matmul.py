@@ -7,9 +7,11 @@ to ``M_TILE`` rows, and for each ``M_TILE``-row m-tile ``i``
 
     out[i*128 : +128, :] = lhs[i*128 : +128, :] @ rhs[tile_expert[i]]
 
-with every lhs value taken to float32 exactly, float32 products and sums,
-and a float32 result (the reference's default ``out_dtype``, the only
-one its callers use; another raises). It is CUDA C++ in
+with every lhs and rhs value taken to float32 exactly, float32 products
+and sums, and the float32 result cast to ``out_dtype`` (float32 by
+default), as the reference's ``acc.astype(out_dtype)`` flushes it. lhs
+is float32 or bfloat16; rhs is float32, or bfloat16 or float16, which
+the wrapper widens to float32 (exactly). It is CUDA C++ in
 ``repro_torch/csrc/moe_group_matmul.cu`` (see its notes for the bound and
 the design). The wrapper runs the plain PyTorch version
 (:func:`moe_group_matmul_padded_plain`) only for CPU tensors; a CUDA
@@ -33,6 +35,9 @@ M_TILE, N_TILE, K_TILE = 128, 128, 128
 
 # lhs dtype -> the code the C entry point takes
 _LHS_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# rhs dtypes the wrapper takes; the kernel reads float32, so the others
+# are widened to it first (exact)
+_RHS_WIDENED = (torch.float32, torch.bfloat16, torch.float16)
 
 # the plain version multiplies this many m-tiles per batched product, so
 # its gathered weights stay near 64 MiB at the widths of the full configs
@@ -90,14 +95,20 @@ def moe_group_matmul_padded(lhs: torch.Tensor, rhs: torch.Tensor,
                             n_rows: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """K9: the grouped GEMM over expert-sorted, group-padded rows.
-    lhs f32/bf16 [T_pad, K], rhs f32 [E, K, N], tile_expert int32
-    [T_pad / 128] (, n_rows int32 [1]) -> f32 [T_pad, N]."""
-    if out_dtype != torch.float32:
-        raise TypeError(f"K9 writes float32 only, got out_dtype {out_dtype}")
+    lhs f32/bf16 [T_pad, K], rhs f32/bf16/f16 [E, K, N], tile_expert
+    int32 [T_pad / 128] (, n_rows int32 [1]) -> out_dtype [T_pad, N]
+    (the kernel writes float32; another float dtype is a cast of it)."""
+    if not out_dtype.is_floating_point:
+        raise TypeError(f"out_dtype must be a float dtype, got {out_dtype}")
+    if rhs.dtype not in _RHS_WIDENED:
+        raise TypeError(f"rhs must be one of {_RHS_WIDENED}, got "
+                        f"{rhs.dtype}")
     if lhs.device.type == "cpu":
-        return moe_group_matmul_padded_plain(lhs, rhs, tile_expert,
-                                             n_rows=n_rows)
+        out = moe_group_matmul_padded_plain(lhs, rhs, tile_expert,
+                                            n_rows=n_rows)
+        return out.to(out_dtype)
     T_pad, K, E, N = _check_shapes(lhs, rhs, tile_expert)
+    rhs = rhs.to(torch.float32)                  # exact for bf16 and f16
     lhs_code = _LHS_CODE.get(lhs.dtype)
     if lhs_code is None:
         raise TypeError(f"lhs must be one of {tuple(_LHS_CODE)}, got "
@@ -117,9 +128,6 @@ def moe_group_matmul_padded(lhs: torch.Tensor, rhs: torch.Tensor,
         _lib.require(n_rows, "n_rows", torch.int32, 1)
         if n_rows.numel() != 1 or n_rows.device != lhs.device:
             raise ValueError("n_rows must be one int32 on lhs's device")
-    if T_pad // M_TILE > 65535:
-        raise ValueError(f"T_pad {T_pad} exceeds the grid's "
-                         f"{65535 * M_TILE} rows")
     out = torch.empty((T_pad, N), dtype=torch.float32, device=lhs.device)
     fn = "moe_group_matmul_launch"
     _lib.check(_lib.entry(fn)(
@@ -127,7 +135,7 @@ def moe_group_matmul_padded(lhs: torch.Tensor, rhs: torch.Tensor,
         0 if n_rows is None else n_rows.data_ptr(), out.data_ptr(), T_pad,
         K, N, E, _lib.stream_of(lhs)), fn)
     moe_group_matmul_padded.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 moe_group_matmul_padded.launches = 0

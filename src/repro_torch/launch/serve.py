@@ -490,7 +490,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="SpMV serving on one device or a mesh, or LM serving "
                     "(repro_torch port)")
-    ap.add_argument("--mode", choices=("spmv", "lm"), default="spmv")
+    ap.add_argument("--mode", choices=("lm", "spmv"), default="lm",
+                    help="lm (default, as the reference's serve) or spmv")
     ap.add_argument("--matrix", default="mawi_like")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=32)

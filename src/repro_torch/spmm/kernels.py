@@ -21,9 +21,10 @@ kernel.
 
 K1, K8, K2 and K3 cover all k columns in one launch and tile the columns
 inside the kernel, so the matrix stream is read once per multiply; they
-accept the reference's ``k_tile`` and ignore it. K6 keeps the reference's
-column-tile grid axis: it reads the tile stream once per column tile of
-``k_tile`` columns (default :func:`choose_k_tile`). ``choose_k_tile``
+accept the reference's ``k_tile`` and ignore it. K6 checks the
+reference's column tile ``k_tile`` (default :func:`choose_k_tile`) but,
+like K7, reads the tile stream once per multiply whatever it is: every
+column of a staged tile is done by the warp that holds it. ``choose_k_tile``
 keeps the reference's contract (``1 <= kt <= k``) re-derived for the
 card: there is no VMEM slab to fit, so only the roofline rule is left
 (past the float32 ridge more columns per pass buy nothing).
@@ -362,12 +363,12 @@ def tiled_spmm_plain(ts: TiledSparse, x: torch.Tensor) -> torch.Tensor:
 def tiled_spmm(ts: TiledSparse, x: torch.Tensor, *,
                k_tile: Optional[int] = None,
                plain: bool = False) -> torch.Tensor:
-    """K6: ``Y = A X`` over the dense-mini-tile stream with a column-tile
-    grid axis of ``k_tile`` columns (default :func:`choose_k_tile`) ->
-    f32 [m, k]. Serves every blocked paper format (their compute form is
-    ``TiledSparse``). ``plain=True``, or CPU tensors, run the plain
-    version. The adds into Y are atomic, so their order (and the last
-    bits) vary from run to run."""
+    """K6: ``Y = A X`` over the dense-mini-tile stream for a column tile
+    of ``k_tile`` columns (default :func:`choose_k_tile`; the kernel reads
+    the stream once whatever it is) -> f32 [m, k]. Serves every blocked
+    paper format (their compute form is ``TiledSparse``). ``plain=True``,
+    or CPU tensors, run the plain version. The adds into Y are atomic,
+    so their order (and the last bits) vary from run to run."""
     m, n = ts.shape
     if x.ndim != 2 or x.shape[0] != n:
         raise ValueError(f"X must be [{n}, k], got {tuple(x.shape)}")
@@ -377,7 +378,7 @@ def tiled_spmm(ts: TiledSparse, x: torch.Tensor, *,
         raise ValueError(f"k_tile must be in [1, {k}], got {kt}")
     if plain or x.device.type == "cpu":
         return tiled_spmm_plain(ts, x)
-    y = _bsr.tiled_spmm_launch(ts, x, kt)
+    y = _bsr.tiled_spmm_launch(ts, x)
     tiled_spmm.launches += 1
     return y
 

@@ -317,8 +317,9 @@ def test_operator_realizes_blocked_plan_like_reference():
 
 def test_serve_pinned_blocked_algorithm():
     from repro_torch.launch import serve
-    res = serve.main(["--matrix", "mawi_like", "--scale", "0.01",
-                      "--requests", "6", "--max-batch", "4", "--reps", "1",
+    res = serve.main(["--mode", "spmv", "--matrix", "mawi_like", "--scale",
+                      "0.01", "--requests", "6", "--max-batch", "4",
+                      "--reps", "1",
                       "--algorithm", "csb", "--device", "cpu",
                       "--impl", "plain"])
     assert res["op"].plan.label == "csb" and len(res["answers"]) == 6

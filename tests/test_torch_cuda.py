@@ -325,7 +325,7 @@ def test_grouped_gemm_wrapper_validates_operands(cuda):
     with pytest.raises(TypeError):
         TK9.moe_group_matmul_padded(lhs, w.double(), te)
     with pytest.raises(TypeError):
-        TK9.moe_group_matmul_padded(lhs, w, te, out_dtype=torch.bfloat16)
+        TK9.moe_group_matmul_padded(lhs, w, te, out_dtype=torch.int32)
     with pytest.raises(ValueError):          # one expert id per m-tile
         TK9.moe_group_matmul_padded(lhs, w, te[:1])
     with pytest.raises(ValueError):          # not contiguous
@@ -333,6 +333,152 @@ def test_grouped_gemm_wrapper_validates_operands(cuda):
             torch.zeros((128, 256), device=cuda).t(), w, te)
     with pytest.raises(ValueError):          # on another device
         TK9.moe_group_matmul_padded(lhs, w.cpu(), te)
+
+
+@pytest.mark.parametrize("case", ["out_bf16", "rhs_bf16"])
+def test_grouped_gemm_takes_the_reference_dtypes(cuda, case):
+    """K9 with a bf16 output (its f32 answer cast once) and with bf16
+    weights (widened to f32 exactly) against its plain version."""
+    tokens, w, sizes = _k9_operands(cuda, "decode")
+    E, K = w.shape[0], w.shape[1]
+    gp = TOPS.moe_group_pad(tokens, sizes, E, K)
+    kw = {"out_dtype": torch.bfloat16} if case == "out_bf16" else {}
+    if case == "rhs_bf16":
+        w = w.to(torch.bfloat16)
+    before = TK9.moe_group_matmul_padded.launches
+    got = TK9.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
+                                      n_rows=gp.n_rows, **kw)
+    assert TK9.moe_group_matmul_padded.launches == before + 1
+    want = TK9.moe_group_matmul_padded_plain(
+        gp.lhs, w, gp.tile_expert, n_rows=gp.n_rows)
+    assert got.dtype == (torch.bfloat16 if case == "out_bf16"
+                         else torch.float32)
+    if case == "out_bf16":
+        # one bf16 step of the largest output: f32 sums in another order
+        # may round to the neighbouring bf16 value
+        step = 2.0 ** -7 * max(1.0, float(want.abs().max()))
+        assert float((got.float() - want).abs().max()) <= step
+    else:
+        _close(got, want)
+
+
+def test_grouped_gemm_past_65535_m_tiles(cuda):
+    """One launch over 65,536 m-tiles (K = N = 128): the m-tiles are on
+    grid.x, so the old 65,535-tile cap is gone; the last tiles against
+    the plain version."""
+    nm = 65536
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    lhs = torch.randn((nm * 128, 128), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    w = torch.randn((4, 128, 128), generator=gen, device=cuda) / 16
+    te = torch.arange(nm, device=cuda, dtype=torch.int32) % 4
+    out = TK9.moe_group_matmul_padded(lhs, w, te)
+    torch.cuda.synchronize()
+    tail = slice((nm - 3) * 128, nm * 128)
+    _close(out[tail], TK9.moe_group_matmul_padded_plain(
+        lhs[tail].contiguous(), w, te[nm - 3:].contiguous()))
+    _close(out[:128], lhs[:128].float() @ w[0])
+
+
+def _tiled(cuda, tiles, rows, cols, shape, dtype=torch.float32):
+    from repro_torch.kernels.tiling import TiledSparse
+    tiles = torch.as_tensor(tiles, dtype=torch.float32).to(dtype)
+    nnz = int((tiles != 0).sum())
+    return TiledSparse(tiles.to(cuda).contiguous(),
+                       torch.as_tensor(rows, dtype=torch.int32).to(cuda),
+                       torch.as_tensor(cols, dtype=torch.int32).to(cuda),
+                       shape, 0, "csb", nnz)
+
+
+def _k67_close(ts, X, kts):
+    """K7 and K6 (each column tile in ``kts``) against their plain
+    versions, each launch counted once; NaN and Inf must match."""
+    want = TBSR.bsr_spmm_plain(ts, X)
+    tol = 1e-4 * max(1.0, float(want[want.isfinite()].abs().max())
+                     if bool(want.isfinite().any()) else 1.0)
+    runs = [(TBSR.bsr_spmm, lambda: TBSR.bsr_spmm(ts, X))]
+    runs += [(TK.tiled_spmm, (lambda kt=kt: TK.tiled_spmm(ts, X, k_tile=kt)))
+             for kt in kts]
+    for wrapper, run in runs:
+        before = wrapper.launches
+        got = run()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.isinf(), want.isinf())
+        assert torch.equal(got[got.isinf()], want[want.isinf()])
+        fin = want.isfinite()
+        err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8, 31, 32, 33, 96, 129])
+def test_tiled_spmm_skips_zeros_matches_plain(cuda, k, dtype):
+    """The redesigned K6/K7 (stored zeros skipped, persistent grid, tile
+    ring) against the plain versions on a road_like stream, every k of a
+    lane-share, one-pass, several-pass and several-sweep schedule, with
+    kt = k and a narrower column tile."""
+    coo = _matrix(cuda, "road_like", 0.05)
+    ts = coo_to_tiled(coo, "csb", dtype=dtype)
+    X = torch.randn((coo.shape[1], k), device=cuda)
+    _k67_close(ts, X, sorted({k, max(k // 3, 1)}))
+
+
+def test_tiled_spmm_edge_streams(cuda):
+    """An all-zero tile, an empty stream, a tile row longer than a block's
+    range (200 tiles of one dense row), alternating tile rows and a dense
+    tile, against the plain versions."""
+    rng = np.random.default_rng(4)
+    # one all-zero tile beside two sparse ones
+    t = np.zeros((3, 8, 128), np.float32)
+    t[1, 3, 5], t[2, 0, 127], t[2, 7, 0] = 2.0, -1.0, 3.0
+    ts = _tiled(cuda, t, [0, 1, 1], [0, 0, 1], (16, 256))
+    _k67_close(ts, torch.randn((256, 40), device=cuda), [40, 7])
+    # the empty stream: Y is zero
+    ts = _tiled(cuda, np.zeros((0, 8, 128), np.float32), [], [], (16, 256))
+    X = torch.randn((256, 5), device=cuda)
+    for y in (TBSR.bsr_spmm(ts, X), TK.tiled_spmm(ts, X, k_tile=2)):
+        assert y.shape == (16, 5) and float(y.abs().max()) == 0.0
+    # a dense row (row 3 of tile row 2) over 200 tile columns
+    n = 128 * 200
+    t = np.zeros((200, 8, 128), np.float32)
+    t[:, 3, :] = rng.standard_normal((200, 128))
+    t[::7, 5, ::9] = 1.0
+    ts = _tiled(cuda, t, np.full(200, 2), np.arange(200), (24, n))
+    for k in (1, 32, 33):
+        _k67_close(ts, torch.randn((n, k), device=cuda), [k])
+    # tile rows alternating 0, 1, 0, 1, ... over 100 tiles, dense tiles
+    t = rng.standard_normal((100, 8, 128)).astype(np.float32)
+    t[rng.random(t.shape) < 0.9] = 0.0
+    t[50] = rng.standard_normal((8, 128))
+    ts = _tiled(cuda, t, np.arange(100) % 2, np.arange(100) % 3,
+                (16, 3 * 128 - 5), torch.bfloat16)
+    for k in (4, 32, 70):
+        _k67_close(ts, torch.randn((3 * 128 - 5, k), device=cuda), [k, 3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_spmm_nonfinite_x_through_stored_zeros(cuda, dtype):
+    """A NaN and an Inf of X in blocks where only stored zeros meet them
+    reach every row of those tiles, as in the dense tile product; a
+    finite f32 that rounds to Inf in bf16 does the same for bf16 tiles."""
+    rows, cols, vals, (m, n) = TM.test_suite(0.05)["road_like"].make()
+    # three columns emptied: their X rows meet stored zeros only
+    q = [n // 4 + 3, n // 2 + 70, 3 * n // 4 + 127]
+    keep = ~np.isin(cols, q)
+    coo = TM.as_coo((rows[keep], cols[keep], vals[keep], (m, n)),
+                    device=cuda)
+    ts = coo_to_tiled(coo, "csb", dtype=dtype)
+    for k in (1, 8, 33):
+        X = torch.randn((n, k), device=cuda)
+        X[q[0], 0] = float("nan")
+        X[q[1], k - 1] = float("-inf")
+        X[q[2], k // 2] = 3.4e38
+        want = TBSR.bsr_spmm_plain(ts, X)
+        assert int(want.isnan().sum()) >= 8
+        _k67_close(ts, X, sorted({k, max(k // 2, 1)}))
 
 
 def test_moe_layer_kernel_route_matches_plain(cuda):

@@ -537,10 +537,10 @@ def test_serve_devices_on_a_cpu_mesh(tmp_path):
     assert {"spmm/mesh", "spmm/kernel", "spmm/fixup"} <= names
     assert doc["labels"]["devices"] in (4, "4")
     with pytest.raises(SystemExit, match="cannot be served on a mesh"):
-        tserve.main(["--matrix", "mawi_like", "--scale", "0.01",
-                     "--devices", "2", "--mesh-devices", "cpu,cpu",
+        tserve.main(["--mode", "spmv", "--matrix", "mawi_like", "--scale",
+                     "0.01", "--devices", "2", "--mesh-devices", "cpu,cpu",
                      "--algorithm", "csb", "--device", "cpu"])
     with pytest.raises(SystemExit, match="mesh-devices"):
-        tserve.main(["--matrix", "mawi_like", "--scale", "0.01",
-                     "--mesh", "2,2", "--mesh-devices", "cpu,cpu",
+        tserve.main(["--mode", "spmv", "--matrix", "mawi_like", "--scale",
+                     "0.01", "--mesh", "2,2", "--mesh-devices", "cpu,cpu",
                      "--device", "cpu"])

@@ -120,6 +120,46 @@ def test_padded_plain_matches_pallas_interpret(lhs_dtype):
     _close(got, want)
 
 
+def _bf16_ulp(a):
+    """One bf16 step at each value of ``a`` (float32 numpy), counted at
+    ``max(|a|, 1)``: near zero, f32 sums in another order differ by more
+    than a step of the value itself."""
+    e = np.frexp(np.maximum(np.abs(a), 1.0).astype(np.float32))[1]
+    return np.ldexp(1.0, e - 8)
+
+
+@pytest.mark.parametrize("case", ["out_bf16", "rhs_bf16"])
+def test_padded_wrapper_takes_the_reference_dtypes(case):
+    """K9's wrapper (its plain version on the CPU) against the Pallas
+    kernel with a bf16 output (f32 sums cast once, as the reference's
+    ``acc.astype(out_dtype)``) and with bf16 weights (widened to f32,
+    exactly), within one bf16 step of the reference's answer (at
+    ``max(|answer|, 1)``), and the f32 answer within the file's
+    tolerance."""
+    tokens, w = _operands(7)
+    gp = TOPS.moe_group_pad(torch.from_numpy(tokens),
+                            torch.tensor(SIZES[2]), E, K)
+    jl, tl = _bf16(gp.lhs.numpy())
+    te = gp.tile_expert.numpy()
+    if case == "out_bf16":
+        jw, tw = jnp.asarray(w), torch.from_numpy(w)
+        kw = {"out_dtype": jnp.bfloat16}
+        tkw = {"out_dtype": torch.bfloat16}
+    else:
+        (jw, tw), kw, tkw = _bf16(w), {}, {}
+    want = JK9.moe_group_matmul_padded(jl, jw, jnp.asarray(te),
+                                       interpret=True, **kw)
+    got = TK9.moe_group_matmul_padded(tl, tw, torch.from_numpy(te), **tkw)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape
+    assert got.dtype == (torch.bfloat16 if case == "out_bf16"
+                         else torch.float32)
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= _bf16_ulp(want)).all(), float(diff.max())
+    if case == "rhs_bf16":                       # an f32 answer
+        _close(got, want)
+
+
 def test_group_pad_layout():
     """The padding equals the reference's rule: each group starts at a
     multiple of 128 in a worst-case length, tile ids clipped to E - 1,

@@ -191,21 +191,24 @@ def test_serve_migrate_force_matches_reference_serve(tmp_path):
 
 
 def test_serve_pinned_sellcs_and_flag_checks():
-    res = tserve.main(["--matrix", "hhh_like", "--scale", "0.01",
-                       "--requests", "9", "--max-batch", "4", "--reps", "1",
+    res = tserve.main(["--mode", "spmv", "--matrix", "hhh_like", "--scale",
+                       "0.01", "--requests", "9", "--max-batch", "4",
+                       "--reps", "1",
                        "--algorithm", "sellcs", "--device", "cpu",
                        "--impl", "plain"])
     assert res["op"].plan.label == "sellcs"
     assert len(res["answers"]) == 9
     with pytest.raises(SystemExit):
-        tserve.main(["--matrix", "hhh_like", "--scale", "0.01",
-                     "--migrate", "auto", "--algorithm", "csb",
+        tserve.main(["--mode", "spmv", "--matrix", "hhh_like", "--scale",
+                     "0.01", "--migrate", "auto", "--algorithm", "csb",
                      "--device", "cpu"])
     with pytest.raises(SystemExit):
-        tserve.main(["--matrix", "nope", "--device", "cpu"])
+        tserve.main(["--mode", "spmv", "--matrix", "nope", "--device",
+                     "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device"):
-            tserve.main(["--matrix", "hhh_like", "--scale", "0.01"])
+            tserve.main(["--mode", "spmv", "--matrix", "hhh_like",
+                         "--scale", "0.01"])
 
 
 def test_import_isolation_no_jax_no_repro():
