@@ -24,13 +24,16 @@ table and a final status line:
 
 Phases:
   1. build the kernels (nvcc, sm_90a, one process per source) and print
-     K6/K7's ``-Xptxas -v`` registers, spills and shared memory;
+     the ``-Xptxas -v`` registers, spills and shared memory of K6/K7, K5
+     and K4;
   2. kernel vs plain version for K1 (SELL-C-σ), K3 (its transpose), K2
      (merge-path SpMM), K4 (merge-path SpMV) and the carry step on
      hhh_like --scale 64, mawi_like --scale 4 and road_like --scale 8 for
      k in {1, 8, 32, 33} (K4 is the k = 1 entry), with kernel, plain,
-     torch.sparse CSR (of A^T for K3) and bound times, and the whole
-     A^T X multiply (slot-X gather + K3) against the torch oracle;
+     torch.sparse CSR (of A^T for K3) and bound times, K4 also with the
+     bound of its plan's stream and its time before its redesign, and
+     the whole A^T X multiply (slot-X gather + K3) against the torch
+     oracle;
   3. serve path A: --algorithm sellcs (K1), one flush checked against
      the torch oracle;
   4. serve path B: --migrate force (K2, K4, carry step, one plan swap);
@@ -48,14 +51,17 @@ Phases:
      oracle ``spmm_ref(coo, ·)``;
   8. the blocked formats (road_like --scale 8, 1,048,576 rows): for each
      of the eight blocked orders, conversion to the tiled format (seconds,
-     tiles, fill, x/y window switches) and one multiply through
-     ``core.spmv`` (K5) against K5's plain version and the triplet oracle,
-     timed; on csb and bcohch, ``spmm`` (K6 at ``choose_k_tile``'s column
-     tile, timed, and at a narrower one, checked: the same launch) and
-     ``kernels.ops.bsr_spmm`` (K7) at k in {8, 32, 33}, and K6/K7 on
-     csb at k = 32 for an X with a NaN and an Inf (the same NaN/Inf
-     places as the plain version, the finite outputs within the
-     tolerance); where K6/K7's time goes on csb
+     tiles, fill, x/y window switches), the build of K5's zero-free
+     operand (seconds, bytes; kept on the tiles, which the following K5
+     launch must reuse) and one multiply through ``core.spmv`` (K5)
+     against K5's plain version and the triplet oracle, timed beside the
+     operand's bound, the tile stream's and K5's time before its
+     redesign; on csb and bcohch, ``spmm`` (K6 at ``choose_k_tile``'s
+     column tile, timed, and at a narrower one, checked: the same launch)
+     and ``kernels.ops.bsr_spmm`` (K7) at k in {8, 32, 33}, and on csb
+     K6/K7 at k = 32 and K5 at k = 1 for an X with a NaN and an Inf (the
+     same NaN/Inf places as the plain version, the finite outputs within
+     the tolerance); where K6/K7's time goes on csb
      at k = 32 and 8 (``k67_breakdown``: K7 beside the same launch on a
      copy of the stream whose tiles are all zero, which streams the tiles
      and runs the X pre-pass but walks no X and adds nothing into Y, and
@@ -106,14 +112,23 @@ Y written once; ``spmm_bytes``) over the data-sheet HBM rate and
 their format's stream, ``stream_bound_ms``: the tile bytes plus 8 B per
 tile, X and Y over the HBM rate, or the same 2 * nnz * k flops over the
 float32 peak (all that a kernel on this format must compute; K6 and K7
-skip the stored zeros). Their phase-8 rows also carry ``prev_ms`` (the
-card ms before their redesign, where PERF.md has it; not in the
-``kernels`` line, which holds only this run's numbers), the tile
-stream's achieved GB/s and the nonzeros per tile; phase 1 prints their
-``-Xptxas -v`` registers and shared memory. K8's bound is summed over the
-shards: each shard's nonzeros (value and column), one row offset per row,
-its touched X rows with their col_map entries read once, and its rows of
-Y written once. K9's bound counts the real rows (T x top-k) of bf16 lhs
+skip the stored zeros). K5 reads the zero-free operand instead, so it
+also gets ``compact_bound_ms``: the operand's bytes (4 B per tile of
+offsets, a 2 B position and the value per stored nonzero) plus 8 B per
+tile of indices, X and Y. K4 gets ``plan_bound_ms``: 12 B per plan item
+(column, value, row id), X and Y. These stream bounds and ``prev_ms``
+(the card ms before the kernel's redesign, where PERF.md has it) stay in
+the phase rows and the ``rows`` line, not in the ``kernels`` line, which
+holds only ``bound_ms`` and this run's measurements; the K6/K7 rows also
+carry the tile stream's achieved GB/s and the nonzeros per tile. Every
+kernel and library time is the mean of one window of launches after a
+warm-up, by CUDA events: 5 launches, or 250 for K4, K5 and their library
+calls (tens of microseconds each); ``launch_breakdown`` splits one call of each into the host's
+time to issue it, its events time and the device time of each kernel it
+launches (``torch.profiler``). K8's bound is summed over the shards:
+each shard's nonzeros (value and column), one row offset per row, its
+touched X rows with their col_map entries read once, and its rows of Y
+written once. K9's bound counts the real rows (T x top-k) of bf16 lhs
 read once, the f32 weights of every expert that owns a row read once and
 the f32 output written once, or 2 flops per multiply-add at the float32
 peak (the weights are f32 and multiplied unrounded); its ``kernels``
@@ -170,8 +185,8 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` launches after one
-    warm-up, by CUDA events."""
+    """Mean milliseconds of ``fn()`` over ``reps`` launches in one window
+    after one warm-up, by CUDA events."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -279,10 +294,87 @@ def stream_bound_ms(ts, k: int) -> float:
     return bound_ms(nbytes, 2.0 * ts.nnz * k)[0]
 
 
-# K6's and K7's card ms before their redesign (PERF.md, PR 15's chip run:
-# road_like --scale 8, csb, k = 32, choose_k_tile's column tile)
+# card ms before each kernel's redesign, as PERF.md records them: K6 and
+# K7 at road_like --scale 8, csb, k = 32 (choose_k_tile's column tile);
+# K5 on every blocked order of road_like --scale 8 and on mawi_like
+# --scale 4; K4 on phase 2's matrices
 PREV_MS = {("road_like/csb", MAIN_K, "K6"): 4.955,
-           ("road_like/csb", MAIN_K, "K7"): 4.900}
+           ("road_like/csb", MAIN_K, "K7"): 4.900,
+           ("road_like/csb", 1, "K5"): 0.5898,
+           ("road_like/csbh", 1, "K5"): 0.5879,
+           ("road_like/bcoh", 1, "K5"): 0.5942,
+           ("road_like/bcohc", 1, "K5"): 0.5875,
+           ("road_like/bcohch", 1, "K5"): 0.5864,
+           ("road_like/bcohchp", 1, "K5"): 0.5869,
+           ("road_like/mergeb", 1, "K5"): 0.5921,
+           ("road_like/mergebh", 1, "K5"): 0.5855,
+           ("mawi_like/csb", 1, "K5"): 1.0786,
+           ("hhh_like", 1, "K4"): 1.0756,
+           ("mawi_like", 1, "K4"): 0.0650,
+           ("road_like", 1, "K4"): 0.1910}
+# K4 and K5 take tens of microseconds: they and their library calls are
+# timed as the mean of one longer window
+SHORT_REPS = 250
+
+
+def compact_bound_ms(ts, c) -> float:
+    """Least time for K5's own stream, the zero-free operand ``c``
+    (offsets, packed positions and values) with the tile indices, X read
+    once and Y written once — or 2 * nnz flops at the float32 peak."""
+    m, n = ts.shape
+    nbytes = c.nbytes() + 8 * ts.num_tiles + 4 * n + 4 * m
+    return bound_ms(nbytes, 2.0 * ts.nnz)[0]
+
+
+def launch_breakdown(fn, reps: int = SHORT_REPS) -> dict:
+    """Where one call of a kernel wrapper goes: the host's time to issue
+    it (``reps`` calls with no synchronize in the window, per call), the
+    same calls timed by CUDA events right after, and the device time of
+    each kernel it launches (``torch.profiler``, per call, by kernel
+    name). A wrapper whose events time is near ``host_us`` is bound by
+    the host, one near ``device_us`` by the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    events_us = cuda_ms(fn, reps) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            name = next((k for k in ("tiled_spmv_kernel", "spmv_prepass",
+                                     "merge_spmv_kernel", "csrmv", "spmv",
+                                     "Fill", "fill")
+                         if k in e.key), e.key[:48])
+            device[name] = device.get(name, 0.0) + us / reps
+    if not device:
+        raise AssertionError("the profiler recorded no device time")
+    return {"host_us": host_us, "events_us": events_us,
+            "device_us": sum(device.values()), "kernels_us": device}
+
+
+def breakdown_text(bd: dict) -> str:
+    return (f"host {bd['host_us']:.1f} us/call, events "
+            f"{bd['events_us']:.1f}, device "
+            f"{bd['device_us']:.1f} us/call (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in bd["kernels_us"].items()) + ")")
+
+
+def plan_bound_ms(plan, m: int, n: int) -> float:
+    """Least time for K4's own stream: 12 B per plan item (column, value,
+    row id) of every span, X read once and Y written once."""
+    items = int(plan.span_len.sum())
+    return bound_ms(12 * items + 4 * n + 4 * m, 2.0 * items)[0]
 
 
 def ptxas_lines(log: str, name: str) -> list:
@@ -442,15 +534,29 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
                 raise AssertionError(f"K4 carry rows differ on {name}")
             err4 = max(max_err(yk, yp[:, 0]), max_err(cvk, cvp[:, 0]))
             b, by = bound_ms(spmm_bytes(nnz, m, n, 1), 2.0 * nnz)
-            rows.append(("K4", err4, tol_of(yp), cuda_ms(k4, reps),
-                         cuda_ms(k4p, max(reps // 2, 1)), b, by, lib_ms))
+            rows.append(("K4", err4, tol_of(yp),
+                         cuda_ms(k4, SHORT_REPS),
+                         cuda_ms(k4p, max(reps // 2, 1)), b, by,
+                         cuda_ms(lambda: A_lib @ X, SHORT_REPS),
+                         {"plan_bound_ms": plan_bound_ms(plan, m, n),
+                          "prev_ms": PREV_MS.get((name, 1, "K4"))}))
+            bd = launch_breakdown(k4)
+            bl = launch_breakdown(lambda: A_lib @ X)
+            print(f"[chip_smoke]   K4 breakdown on {name}: "
+                  f"{breakdown_text(bd)}; library {breakdown_text(bl)}",
+                  flush=True)
+            rows[-1][-1].update(breakdown=bd, library_breakdown=bl)
 
-        for kern, err, tol, ms, pms, b, by, lms in rows:
+        for kern, err, tol, ms, pms, b, by, lms, *more in rows:
+            extra = more[0] if more else {}
             ok = err <= tol
             print(f"[chip_smoke]   {kern:<5} k={k:<2} max_abs_err={err:.3g} "
                   f"tol={tol:.3g} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f}"
                   f" plain_ms={pms:.4f} bound_ms={b:.4f} ({by}) library_ms="
-                  f"{'null' if lms is None else f'{lms:.4f}'}", flush=True)
+                  f"{'null' if lms is None else f'{lms:.4f}'}" + "".join(
+                      f" {key}={v if v is None else f'{v:.4f}'}"
+                      for key, v in extra.items()
+                      if not isinstance(v, dict)), flush=True)
             if not ok:
                 raise AssertionError(f"{kern} disagrees with its plain "
                                      f"version on {name} k={k}: {err:.3g} "
@@ -458,12 +564,12 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
             shape_rows.append({"matrix": name, "scale": scale, "k": k,
                                "kernel": kern, "max_abs_err": err,
                                "tol": tol, "ms": ms, "plain_ms": pms,
-                               "bound_ms": b, "library_ms": lms})
+                               "bound_ms": b, "library_ms": lms, **extra})
             want_k = 1 if kern == "K4" else MAIN_K
             if main and k == want_k:
                 table[kern] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                                "bound_ms": b, "bound_by": by,
-                               "library_ms": lms}
+                               "library_ms": lms, **extra}
     del A_lib, At_lib, plan, csr
     torch.cuda.empty_cache()
     if main:
@@ -827,9 +933,10 @@ def k67_breakdown(label: str, ts, ks, reps: int) -> list:
 
 def nonfinite_rows(label: str, ts, k: int) -> list:
     """K6 and K7 against their plain versions for an X with a NaN and an
-    Inf: both must reach the same outputs (every row of every stored
-    tile over their 128-row X blocks, through the stored zeros), and the
-    finite outputs agree within the usual tolerance."""
+    Inf, and K5 for its first column with the same Inf: each must reach
+    the same outputs (every row of every stored tile over their 128-row X
+    blocks, through the stored zeros), and the finite outputs agree within
+    the usual tolerance."""
     import torch
     from repro_torch.kernels import bsr_spmv as BS
     from repro_torch.spmm import kernels as SK
@@ -838,12 +945,16 @@ def nonfinite_rows(label: str, ts, k: int) -> list:
         device="cuda").manual_seed(78), device="cuda")
     X[n // 3, 0] = float("nan")
     X[2 * n // 3, k - 1] = float("inf")
+    x = X[:, 0].clone()
+    x[2 * n // 3] = float("inf")
     out = []
     for kern, kfn, pfn in (
             ("K6", lambda: SK.tiled_spmm(ts, X),
              lambda: SK.tiled_spmm_plain(ts, X)),
             ("K7", lambda: BS.bsr_spmm(ts, X),
-             lambda: BS.bsr_spmm_plain(ts, X))):
+             lambda: BS.bsr_spmm_plain(ts, X)),
+            ("K5", lambda: BS.bsr_spmv(ts, x),
+             lambda: BS.bsr_spmv_plain(ts, x))):
         yk, yp = kfn(), pfn()
         torch.cuda.synchronize()
         fin = yp.isfinite()
@@ -851,15 +962,16 @@ def nonfinite_rows(label: str, ts, k: int) -> list:
                 and torch.equal(yk.isinf(), yp.isinf())
                 and torch.equal(yk[yk.isinf()], yp[yp.isinf()]))
         err, tol = max_err(yk[fin], yp[fin]), tol_of(yp[fin])
-        print(f"[chip_smoke]   {label} {kern} k={k} non-finite X: "
+        print(f"[chip_smoke]   {label} {kern} k={1 if kern == 'K5' else k} "
+              f"non-finite X: "
               f"{int(yp.isnan().sum())} NaN, {int(yp.isinf().sum())} Inf "
               f"outputs, same places {same}, finite max_abs_err={err:.3g} "
               f"tol={tol:.3g}", flush=True)
         if not same or err > tol or not bool((~fin).any()):
             raise AssertionError(f"{kern} disagrees with its plain version "
                                  f"on {label} with a non-finite X")
-        out.append({"matrix": label, "k": k, "kernel": kern,
-                    "nan": int(yp.isnan().sum()),
+        out.append({"matrix": label, "k": 1 if kern == "K5" else k,
+                    "kernel": kern, "nan": int(yp.isnan().sum()),
                     "inf": int(yp.isinf().sum()), "same_places": same,
                     "max_abs_err": err, "tol": tol})
     return out
@@ -891,7 +1003,10 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
     x = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(
         5), device="cuda")
     ref1 = spmm_ref(coo, x.double())
-    lib1 = cuda_ms(lambda: A_lib @ x[:, None], reps)
+    lib1 = cuda_ms(lambda: A_lib @ x[:, None], SHORT_REPS)
+    lib1_bd = launch_breakdown(lambda: A_lib @ x[:, None])
+    print(f"[chip_smoke]   library (CSR) k = 1: {breakdown_text(lib1_bd)}",
+          flush=True)
     b1, by1 = bound_ms(spmm_bytes(coo.nnz, m, n, 1), 2.0 * coo.nnz)
 
     # every blocked visit order: conversion, window switches, one K5
@@ -903,11 +1018,16 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
         ts = coo_to_tiled(coo, algo, num_bands=bands)
         torch.cuda.synchronize()
         conv_s = time.perf_counter() - t0
+        # K5's zero-free operand: built once here (its own seconds), kept
+        # on the tiles and reused by every K5 launch below
+        op = BS._compact_tiles(ts)
         xsw, ysw = ts.window_switches()
         y, counts = run_counted(lambda: spmv(ts, x))
         if counts["K5"] != 1:
             raise AssertionError(f"spmv on the {algo} tiles launched K5 "
                                  f"{counts['K5']} times")
+        if ts._compact is not op:
+            raise AssertionError(f"K5 rebuilt its operand on {algo}")
         launches["K5"] += 1
         err_ref = max_err(y, ref1)
         if err_ref > tol_of(ref1):
@@ -917,25 +1037,31 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
         if err > tol:
             raise AssertionError(f"K5 disagrees with its plain version on "
                                  f"{algo}: {err:.3g} > {tol:.3g}")
-        ms = cuda_ms(lambda: BS.bsr_spmv(ts, x), reps)
+        ms = cuda_ms(lambda: BS.bsr_spmv(ts, x), SHORT_REPS)
         pms = cuda_ms(lambda: BS.bsr_spmv_plain(ts, x), max(reps // 2, 1))
-        sb = stream_bound_ms(ts, 1)
+        sb, cb = stream_bound_ms(ts, 1), compact_bound_ms(ts, op)
+        prev = PREV_MS.get((f"road_like/{algo}", 1, "K5"))
+        bd = launch_breakdown(lambda: BS.bsr_spmv(ts, x))
         row = {"matrix": "road_like", "scale": scale_road, "order": algo,
                "num_bands": bands, "convert_s": conv_s,
+               "compact_build_s": op.build_s, "compact_bytes": op.nbytes(),
                "tiles": ts.num_tiles, "fill": ts.fill_ratio,
                "x_switches": xsw, "y_switches": ysw, "kernel": "K5",
                "max_abs_err": err, "tol": tol, "oracle_err": err_ref,
                "ms": ms, "plain_ms": pms, "bound_ms": b1, "bound_by": by1,
-               "stream_bound_ms": sb, "library_ms": lib1}
+               "stream_bound_ms": sb, "compact_bound_ms": cb,
+               "library_ms": lib1, "prev_ms": prev, "breakdown": bd}
         orders.append(row)
         if "K5" not in table:
             table["K5"] = row
-        print(f"[chip_smoke]   {algo:<8} convert {conv_s:.2f} s, tiles "
-              f"{ts.num_tiles}, fill {ts.fill_ratio:.4f}, switches x={xsw} "
-              f"y={ysw}; K5 {ms:.4f} ms (plain {pms:.4f}, bound {b1:.4f}, "
-              f"stream {sb:.4f}, library {lib1:.4f}) max_abs_err {err:.3g}",
-              flush=True)
-        del ts, y, yp
+        print(f"[chip_smoke]   {algo:<8} convert {conv_s:.2f} s (+ K5 "
+              f"operand {op.build_s:.3f} s, {op.nbytes() / 1e6:.1f} MB), "
+              f"tiles {ts.num_tiles}, fill {ts.fill_ratio:.4f}, switches "
+              f"x={xsw} y={ysw}; K5 {ms:.4f} ms (plain {pms:.4f}, bound "
+              f"{b1:.4f}, operand {cb:.4f}, tile stream {sb:.4f}, library "
+              f"{lib1:.4f}, before {prev}) max_abs_err {err:.3g}; "
+              f"{breakdown_text(bd)}", flush=True)
+        del ts, y, yp, op
         torch.cuda.empty_cache()
 
     # K6 and K7 on a row-ordered and a Hilbert-ordered stream
@@ -962,6 +1088,7 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
     mawi = matrices.as_coo(
         matrices.test_suite(scale_mawi)["mawi_like"].make(), device="cuda")
     ts = coo_to_tiled(mawi, "csb")
+    op = BS._compact_tiles(ts)
     mm, mn = mawi.shape
     M_lib = torch.sparse_csr_tensor(*_csr_parts(mawi), (mm, mn))
     print(f"[chip_smoke] blocked mawi_like --scale {scale_mawi:g}: m={mm} "
@@ -987,20 +1114,29 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
     mawi_k5 = {"matrix": "mawi_like", "scale": scale_mawi, "kernel": "K5",
                "k": 1, "max_abs_err": errm, "tol": tol_of(ypm),
                "oracle_err": err_refm,
-               "ms": cuda_ms(lambda: BS.bsr_spmv(ts, xm), reps),
+               "compact_build_s": op.build_s, "compact_bytes": op.nbytes(),
+               "ms": cuda_ms(lambda: BS.bsr_spmv(ts, xm), SHORT_REPS),
                "plain_ms": cuda_ms(lambda: BS.bsr_spmv_plain(ts, xm), 1),
                "bound_ms": bm, "bound_by": bym,
                "stream_bound_ms": stream_bound_ms(ts, 1),
-               "library_ms": cuda_ms(lambda: M_lib @ xm[:, None], reps)}
+               "compact_bound_ms": compact_bound_ms(ts, op),
+               "library_ms": cuda_ms(lambda: M_lib @ xm[:, None],
+                                     SHORT_REPS),
+               "prev_ms": PREV_MS.get(("mawi_like/csb", 1, "K5")),
+               "breakdown": launch_breakdown(lambda: BS.bsr_spmv(ts, xm))}
     print(f"[chip_smoke]   mawi_like K5 {mawi_k5['ms']:.4f} ms (plain "
-          f"{mawi_k5['plain_ms']:.4f}, bound {bm:.4f}, stream "
+          f"{mawi_k5['plain_ms']:.4f}, bound {bm:.4f}, operand "
+          f"{mawi_k5['compact_bound_ms']:.4f}, tile stream "
           f"{mawi_k5['stream_bound_ms']:.4f}, library "
-          f"{mawi_k5['library_ms']:.4f}) max_abs_err {errm:.3g}", flush=True)
+          f"{mawi_k5['library_ms']:.4f}, before {mawi_k5['prev_ms']}) "
+          f"max_abs_err {errm:.3g}; operand {op.build_s:.3f} s, "
+          f"{op.nbytes() / 1e6:.1f} MB; "
+          f"{breakdown_text(mawi_k5['breakdown'])}", flush=True)
     spmm_rows.append(mawi_k5)
     spmm_rows += tiled_rows("mawi_like/csb", mawi, ts, (MAIN_K,),
                             lambda k, kt0: [kt0], reps, M_lib, launches,
                             table, main=False)
-    del ts, mawi, M_lib, ym, ypm, refm
+    del ts, op, mawi, M_lib, ym, ypm, refm
     torch.cuda.empty_cache()
 
     # the operator path: a pinned blocked plan served through its oracle
@@ -1069,7 +1205,8 @@ def run_blocked(scale_road: float, scale_mawi: float, scale_dense: float,
     secs = time.perf_counter() - t_phase
     print(f"[chip_smoke] blocked phase {secs:.1f} s; launches {launches}",
           flush=True)
-    return {"orders": orders, "spmm": spmm_rows, "nonfinite": nonfinite,
+    return {"orders": orders, "library_breakdown": lib1_bd,
+            "spmm": spmm_rows, "nonfinite": nonfinite,
             "k67_breakdown": breakdown, "serve": serve_row,
             "quickstart": quick_row, "dense_refused": refused,
             "launches": launches, "seconds": secs}
@@ -1735,11 +1872,13 @@ def main(argv=None) -> int:
     print(f"[chip_smoke] build {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'})",
           flush=True)
-    report = ptxas_lines(_lib.BUILD_LOGS.get("tiled", ""),
-                         "tiled_spmm_kernel")
-    for line in report or ["the library was built before this run: no "
-                           "report"]:
-        print(f"[chip_smoke] K6/K7 ptxas: {line}", flush=True)
+    for label, lib, name in (("K6/K7", "tiled", "tiled_spmm_kernel"),
+                             ("K5", "tiled", "tiled_spmv_kernel"),
+                             ("K4", "merge", "merge_spmv_kernel")):
+        report = ptxas_lines(_lib.BUILD_LOGS.get(lib, ""), name)
+        for line in report or ["the library was built before this run: "
+                               "no report"]:
+            print(f"[chip_smoke] {label} ptxas: {line}", flush=True)
 
     # phase 2: kernels vs plain versions
     div = 64.0 if args.quick else 1.0
@@ -1827,8 +1966,8 @@ def main(argv=None) -> int:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"]}
-        for extra in ("stream_bound_ms", "tile_gb_per_s", "per_shard_ms",
-                      "decode_ms", "decode_plain_ms", "decode_bound_ms",
+        for extra in ("tile_gb_per_s", "per_shard_ms", "decode_ms",
+                      "decode_plain_ms", "decode_bound_ms",
                       "decode_library_ms"):
             if extra in row:
                 entry[extra] = row[extra]

@@ -17,10 +17,10 @@
 // below the f32 ridge. The plan's per-item row ids (seg) and the carry
 // buffer are this design's overhead on top of that bound.
 //
-// Design. One block of 256 threads per span p. The threads form G groups
-// of kt = min(pow2ceil(k), 32) threads; a group takes a contiguous share
-// of the span's items and its threads take kt consecutive columns (a warp
-// reads one X row segment when k >= 32). Each group runs a sequential
+// K2's design. One block of 256 threads per span p. The threads form G
+// groups of kt = min(pow2ceil(k), 32) threads; a group takes a contiguous
+// share of the span's items and its threads take kt consecutive columns (a
+// warp reads one X row segment when k >= 32). Each group runs a sequential
 // segmented sum over its share: a row whose items all lie inside the share
 // is written straight into Y; the share's first and last rows go to shared
 // memory. One thread per column then walks the 2G shared entries in order
@@ -32,6 +32,29 @@
 // into Y. Every row is written by exactly one thread exactly once, so Y is
 // deterministic and needs no atomics; Y must start zeroed (rows with no
 // items are never written).
+//
+// K4's design (k = 1, a kernel of its own). At k = 1 K2's groups are
+// single threads ~48 items apart, so their loads neither coalesce nor
+// overlap, and one thread walks the 512 shared entries. K4 instead is a
+// block-wide reduce-by-key. One block of 256 threads per span walks it in
+// tiles of 1,024 consecutive items: each warp loads its 128 items of
+// cols, vals and seg with 4-byte loads at consecutive addresses (so any
+// span start D * p works, aligned or not) while the tile before is being
+// reduced, and transposes them through shared memory so that each thread
+// holds 4 consecutive items. A thread sums its items by row; a segmented
+// scan over the threads (warp shuffles, then the 8 warps' aggregates in
+// shared memory) gives each thread the sum of the row that is open at its
+// first item, and one running sum carries the open row from tile to tile.
+// The thread whose items end a row writes it: into Y, or, for the span's
+// first and last rows, into the carries, which keep K2's layout. Each row
+// is written once by one thread, with no atomics, so K4 is deterministic.
+// Its bound is the plan's stream, 12 B per item (col, val, seg) plus X
+// and Y, against the function's 8 B per nonzero and 4 B per row. Where
+// columns are random (hhh_like), each x load fetches a 32-byte L2 sector
+// for 4 bytes, and those gathers, not the plan's stream, take most of
+// K4's time. Trial builds on the H100 (PERF.md) were no faster
+// with 2 or 8 items a thread, 128- or 512-thread blocks, or fewer
+// registers for more blocks an SM.
 //
 // Padding: the plan pads each span to D items with seg == 0, val == 0,
 // col == 0. Only the first span_len[p] items are read, so the drop back to
@@ -194,6 +217,183 @@ int launch_partials(const int* cols, const float* vals, const int* seg,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- K4 ----
+constexpr int kSpmvThreads = 256;
+constexpr int kSpmvItems = 4;                  // consecutive items a thread
+constexpr int kSpmvWarps = kSpmvThreads / 32;
+constexpr int kWarpItems = 32 * kSpmvItems;
+constexpr int kTileItems = kSpmvThreads * kSpmvItems;
+
+// shared-memory slot of a warp's item i: one word of skew every 32, so
+// the transposed reads (lane * kSpmvItems + v) meet no bank twice
+__host__ __device__ constexpr int skewed(int i) { return i + (i >> 5); }
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(kSpmvThreads)
+merge_spmv_kernel(const int* __restrict__ cols,
+                  const float* __restrict__ vals,
+                  const int* __restrict__ seg,
+                  const int* __restrict__ row_starts,
+                  const int* __restrict__ span_len,
+                  const float* __restrict__ x, float* __restrict__ y,
+                  int* __restrict__ carry_row,
+                  float* __restrict__ carry_val, int D) {
+  constexpr int kSlots = skewed(kWarpItems - 1) + 1;
+  __shared__ int s_col[kSpmvWarps][kSlots];
+  __shared__ float s_val[kSpmvWarps][kSlots];
+  __shared__ int s_seg[kSpmvWarps][kSlots];
+  // per warp of a tile (two tiles alternate): does a row start in it, and
+  // the sum since its last row start (its whole sum when none starts)
+  __shared__ int s_flag[2][kSpmvWarps];
+  __shared__ float s_sum[2][kSpmvWarps];
+  const int p = blockIdx.x;
+  const int wi = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int len = span_len[p];
+  const long long base = (long long)p * D;
+  const long long r0 = row_starts[p];
+  const int first = len > 0 ? seg[base] : -1;      // the span's first row
+  const int last = len > 0 ? seg[base + len - 1] : -1;
+
+  // the warp's items of the tile at tb, striped (register v holds item
+  // w0 + 32 v + lane; seg -1 past the span), and for lane 0 the row of the
+  // item just before the warp's first (-1 at the span start)
+  int nc[kSpmvItems], ns[kSpmvItems];
+  float nv[kSpmvItems];
+  int nprev = -1;
+  auto fetch = [&](int tb) {
+    const int w0 = tb + wi * kWarpItems;
+#pragma unroll
+    for (int v = 0; v < kSpmvItems; ++v) {
+      const int i = w0 + v * 32 + lane;
+      const bool ok = i < len;
+      nc[v] = ok ? __ldg(cols + base + i) : 0;
+      nv[v] = ok ? __ldg(vals + base + i) : 0.f;
+      ns[v] = ok ? __ldg(seg + base + i) : -1;
+    }
+    nprev = lane == 0 && w0 > 0 && w0 <= len ? __ldg(seg + base + w0 - 1)
+                                             : -1;
+  };
+
+  float carry = 0.f;   // the open row's sum over the tiles before
+  int buf = 0;
+  fetch(0);
+  for (int tb = 0; tb < len; tb += kTileItems, buf ^= 1) {
+    // striped -> blocked: thread item v is tile item lane * 4 + v of the
+    // warp's 128
+#pragma unroll
+    for (int v = 0; v < kSpmvItems; ++v) {
+      const int j = skewed(v * 32 + lane);
+      s_col[wi][j] = nc[v];
+      s_val[wi][j] = nv[v];
+      s_seg[wi][j] = ns[v];
+    }
+    int prev = nprev;
+    __syncwarp();
+    int key[kSpmvItems], col[kSpmvItems];
+    float prod[kSpmvItems];
+#pragma unroll
+    for (int v = 0; v < kSpmvItems; ++v) {
+      const int j = skewed(lane * kSpmvItems + v);
+      key[v] = s_seg[wi][j];
+      prod[v] = s_val[wi][j];
+      col[v] = s_col[wi][j];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int v = 0; v < kSpmvItems; ++v)
+      prod[v] = key[v] >= 0 ? prod[v] * __ldg(x + col[v]) : 0.f;
+    // the next tile's loads are in flight while this one is reduced
+    if (tb + kTileItems < len) fetch(tb + kTileItems);
+
+    // the row of the item before this thread's first
+    const int up = __shfl_up_sync(kFull, key[kSpmvItems - 1], 1);
+    if (lane > 0) prev = up;
+
+    // this thread's (flag, sum since its last row start)
+    int f = 0;
+    float a = 0.f;
+    {
+      int k = prev;
+#pragma unroll
+      for (int v = 0; v < kSpmvItems; ++v) {
+        if (key[v] < 0) continue;
+        if (key[v] != k) {
+          f = 1;
+          a = 0.f;
+        }
+        a += prod[v];
+        k = key[v];
+      }
+    }
+    // inclusive segmented scan over the warp: (f1, a1) then (f2, a2) is
+    // (f1 | f2, f2 ? a2 : a1 + a2)
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float a2 = __shfl_up_sync(kFull, a, off);
+      const int f2 = __shfl_up_sync(kFull, f, off);
+      if (lane >= off) {
+        a = f ? a : a2 + a;
+        f |= f2;
+      }
+    }
+    float ea = __shfl_up_sync(kFull, a, 1);
+    int ef = __shfl_up_sync(kFull, f, 1);
+    if (lane == 0) {
+      ea = 0.f;
+      ef = 0;
+    }
+    if (lane == 31) {
+      s_flag[buf][wi] = f;
+      s_sum[buf][wi] = a;
+    }
+    __syncthreads();
+    // the open row's sum before this warp, and after the whole tile
+    float before = 0.f, open = carry;
+#pragma unroll
+    for (int w = 0; w < kSpmvWarps; ++w) {
+      if (w == wi) before = open;
+      open = s_flag[buf][w] ? s_sum[buf][w] : open + s_sum[buf][w];
+    }
+    carry = open;
+
+    // walk the items again from the open row's sum: a row change closes
+    // the row before it, whose sum is complete
+    float run = ef ? ea : before + ea;
+    int cur = prev;
+#pragma unroll
+    for (int v = 0; v < kSpmvItems; ++v) {
+      if (key[v] < 0) continue;
+      if (key[v] != cur) {
+        if (cur >= 0) {
+          if (cur == first)
+            carry_val[2LL * p] = run;
+          else
+            y[r0 + cur] = run;
+        }
+        cur = key[v];
+        run = 0.f;
+      }
+      run += prod[v];
+    }
+  }
+
+  // the span's last row is still open: it goes to the carries, with the
+  // first row's id (the first row's sum went there when it closed)
+  if (threadIdx.x == 0) {
+    const bool two = len > 0 && last != first;
+    carry_row[2LL * p] = len > 0 ? (int)(r0 + first) : -1;
+    carry_row[2LL * p + 1] = two ? (int)(r0 + last) : -1;
+    if (two) {
+      carry_val[2LL * p + 1] = carry;
+    } else {
+      carry_val[2LL * p] = carry;                // 0 for an empty span
+      carry_val[2LL * p + 1] = 0.f;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -210,14 +410,20 @@ int merge_spmm_partials_launch(const int* cols, const float* vals,
                          carry_row, carry_val, P, D, k, stream);
 }
 
-// The k = 1 entry (K4): x f32[n], y f32[m], carry_val f32[2P].
+// K4, the k = 1 entry: the same arrays, x f32[n], y f32[m], zeroed here
+// (rows with no item are never written), carry_row i32[2P] and carry_val
+// f32[2P] fully written. Returns cudaGetLastError().
 int merge_spmv_partials_launch(const int* cols, const float* vals,
                                const int* seg, const int* row_starts,
                                const int* span_len, const float* x, float* y,
                                int* carry_row, float* carry_val, int P, int D,
-                               void* stream) {
-  return launch_partials(cols, vals, seg, row_starts, span_len, x, y,
-                         carry_row, carry_val, P, D, 1, stream);
+                               long long m, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t e = cudaMemsetAsync(y, 0, (size_t)m * sizeof(float), s);
+  if (e != cudaSuccess || P <= 0) return (int)e;
+  merge_spmv_kernel<<<P, kSpmvThreads, 0, s>>>(
+      cols, vals, seg, row_starts, span_len, x, y, carry_row, carry_val, D);
+  return (int)cudaGetLastError();
 }
 
 // carry_row i32[n_entries], carry_val f32[n_entries, k], y f32[m, k].

@@ -13,28 +13,49 @@
 // RHS width R in one block (KT = R).
 //
 // Bound on this card: the function needs the CSR bytes of the matrix
-// plus X and Y; the format itself streams 4 KiB (f32) per stored tile,
-// 100-1000x more at fill ratios of 1e-3..1e-2, so the stream is what a
-// kernel of this format can approach: tile bytes over 3.35 TB/s. The
-// arithmetic the function needs is 2 * nnz * k flops, far below that
+// plus X and Y; the tile format streams 4 KiB (f32) per stored tile,
+// 100-1000x more at fill ratios of 1e-3..1e-2. K6/K7 read that stream
+// (tile bytes over 3.35 TB/s is what they can approach). K5 reads a
+// zero-free copy of it instead (below): 4 B per tile of offsets, 2 B of
+// packed position and 4 B (f32) or 2 B (bf16) of value per stored
+// nonzero, with the tile indices, X and Y, ~45 MB at road_like --scale 8
+// against the 1.67 GB tile stream. So K5 is bound by latency, not bytes:
+// the design keeps many independent loads in flight per warp. The
+// arithmetic the function needs is 2 * nnz * k flops, far below either
 // stream time at the f32 FMA rate; the dense tile math (2 * 1024 * k per
 // tile) would be ~80x more at road_like's ~13 nonzeros a tile.
 //
 // Design:
 //   * Order and reduction. The TPU grid runs in order and every step adds
-//     into one y. Here a warp (K5: 8 tiles) or a block (K6/K7: chunks of 8
-//     tiles) takes contiguous runs of the stored stream, so the visit
-//     order of the paper algorithm that ordered the tiles stays the stream
-//     order within a run.
+//     into one y. Here a warp (K5: a chunk of 32 tiles) or a block (K6/K7:
+//     chunks of 8 tiles) takes contiguous runs of the stored stream, so
+//     the visit order of the paper algorithm that ordered the tiles stays
+//     the stream order within a run.
 //     Consecutive tiles of one tile-row (a row-ordered stream) are summed
-//     in registers; when the tile-row changes the sums are reduced over
-//     the warp and added into Y with f32 atomic adds (RED) into a Y the
-//     wrapper zeroed. So the number of atomics follows the stream's
-//     y-window switches, and the order of the adds, and the last bits,
-//     vary from run to run.
-//   * K5: one warp per run of 8 tiles. Each lane takes 4 of the 128 tile
-//     columns: one float4 of x and, per tile row, 4 tile values (a float4
-//     of f32 or 8 bytes of bf16), with 8 row sums in registers.
+//     on chip (K5: shared memory, K6/K7: registers); when the tile-row
+//     changes the sums are added into Y with f32 atomic adds (RED) into a
+//     zeroed Y, only for rows with a stored nonzero. So the number of
+//     atomics follows the stream's y-window switches, and the order of
+//     the adds, and the last bits, vary from run to run.
+//   * K5 reads the compact operand: the tile stream without its stored
+//     zeros, in the same visit order (built once per TiledSparse by the
+//     wrapper, see the K5 section). One warp per chunk of 32 tiles (a
+//     chunk with more than 1,024 entries, as in mawi_like's dense row, is
+//     split over several warps): lane i loads tile i's row, column and
+//     X-block flag (coalesced), and the chunk's nonzero range; then every
+//     lane loads 8 consecutive entries (one 16-byte load of positions,
+//     one or two of values) and their 8 x values at once, 256 entries a
+//     pass, so a chunk costs about three dependent load latencies, not
+//     one per tile.
+//     Each entry's tile (its top position bits) gives its run and column
+//     by shuffle from the lane that holds the tile. A lane sums its
+//     consecutive entries of one (run, row) and adds them to that slot in
+//     shared memory; at the chunk's end each nonzero slot is added into Y
+//     once. Runs of one tile row inside a chunk share their slots.
+//     Trial builds on the H100 (PERF.md) were no faster with a
+//     persistent grid that loads the next chunk's entries ahead, chunks
+//     of 16 tiles, slots per (tile, row) written without atomics where no
+//     other lane shares them, or fewer registers for more warps an SM.
 //   * K6/K7 work on the stored nonzeros, not on the dense tile: at
 //     road_like's ~13 nonzeros of 1,024 a dense 8x128 product spends ~99 %
 //     of its FMAs and X loads on stored zeros. A block is 2 warps; warp w
@@ -56,12 +77,14 @@
 //     through a stored zero (0 * Inf = NaN), and so do the reference and
 //     the plain version. Skipping a zero is exact only where the 128-row X
 //     block, rounded to the tile dtype, is finite, so a pre-pass
-//     (x_block_finite_kernel, X read once) writes one flag per X block on
-//     the device, with no host sync, and a tile over a non-finite block
-//     also walks its zero positions. The answer then equals the dense
-//     product's, NaN and Inf included.
-//   * The stream. The grid is persistent: the card's SMs times the blocks
-//     that fit on one. The stream is dealt in chunks of 8 consecutive
+//     (x_block_finite_kernel, X read once; K5's own spmv_prepass_kernel
+//     takes a warp per X block and also zeroes Y) writes one flag per X
+//     block on the device, with no host sync, and a tile over a non-finite
+//     block also walks its zero positions (K5: in its dense tile, which
+//     stays stored). The answer then equals the dense product's, NaN and
+//     Inf included.
+//   * K6/K7's stream. The grid is persistent: the card's SMs times the
+//     blocks that fit on one. The stream is dealt in chunks of 8 consecutive
 //     tiles, round-robin over the blocks: the visit order holds within a
 //     chunk, the blocks move through the stream together (the X and Y rows
 //     they touch stay in L2), and a long tile-row (mawi_like's dense row,
@@ -120,82 +143,13 @@ template <> struct Tile<kBF16> {
                        __uint_as_float(raw.y & 0xffff0000u));
   }
   // round to the nearest bf16, ties to even (what torch's .to(bfloat16)
-  // and XLA's convert do); x is finite here
+  // and XLA's convert do); v is not a NaN (x_in)
   static __device__ __forceinline__ float round_x(float v) {
     unsigned u = __float_as_uint(v);
     u += 0x7fffu + ((u >> 16) & 1u);
     return __uint_as_float(u & 0xffff0000u);
   }
 };
-
-// ---------------------------------------------------------------- K5 ----
-constexpr int kSpmvWarps = 8;      // warps per block
-constexpr int kSpmvRun = 8;        // consecutive tiles per warp
-
-// Sum each row's partials over the warp; lane i adds row i's sum into
-// y[row * 8 + i]; the partials restart from zero.
-__device__ __forceinline__ void flush_rows(float (&acc)[kTileR], float* y,
-                                           int row, int lane) {
-  float mine = 0.f;
-#pragma unroll
-  for (int i = 0; i < kTileR; ++i) {
-    float v = acc[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-    if (lane == i) mine = v;
-    acc[i] = 0.f;
-  }
-  if (lane < kTileR) atomicAdd(y + (long long)row * kTileR + lane, mine);
-}
-
-template <int DT>
-__global__ void __launch_bounds__(kSpmvWarps * 32)
-tiled_spmv_kernel(const typename Tile<DT>::T* __restrict__ tiles,
-                  const int* __restrict__ tile_rows,
-                  const int* __restrict__ tile_cols,
-                  const float* __restrict__ x, float* __restrict__ y,
-                  int num_tiles, int n) {
-  const int lane = threadIdx.x & 31;
-  const long long t0 =
-      ((long long)blockIdx.x * kSpmvWarps + (threadIdx.x >> 5)) * kSpmvRun;
-  if (t0 >= num_tiles) return;                     // whole warp
-  const long long t1 = min(t0 + kSpmvRun, (long long)num_tiles);
-  float acc[kTileR];
-#pragma unroll
-  for (int i = 0; i < kTileR; ++i) acc[i] = 0.f;
-  int row = tile_rows[t0];
-  for (long long t = t0; t < t1; ++t) {
-    const int r = tile_rows[t];
-    if (r != row) {
-      flush_rows(acc, y, row, lane);
-      row = r;
-    }
-    const long long xc = (long long)tile_cols[t] * kTileC + lane * 4;
-    float4 xv;
-    if (xc + 4 <= n) {
-      xv = __ldg(reinterpret_cast<const float4*>(x + xc));
-    } else {
-      xv.x = xc < n ? x[xc] : 0.f;
-      xv.y = xc + 1 < n ? x[xc + 1] : 0.f;
-      xv.z = xc + 2 < n ? x[xc + 2] : 0.f;
-      xv.w = xc + 3 < n ? x[xc + 3] : 0.f;
-    }
-    xv.x = Tile<DT>::round_x(xv.x);
-    xv.y = Tile<DT>::round_x(xv.y);
-    xv.z = Tile<DT>::round_x(xv.z);
-    xv.w = Tile<DT>::round_x(xv.w);
-    const typename Tile<DT>::T* tp = tiles + t * kTileElems + lane * 4;
-#pragma unroll
-    for (int i = 0; i < kTileR; ++i) {
-      const float4 a = Tile<DT>::load4(tp + i * kTileC);
-      acc[i] = fmaf(a.x, xv.x, acc[i]);
-      acc[i] = fmaf(a.y, xv.y, acc[i]);
-      acc[i] = fmaf(a.z, xv.z, acc[i]);
-      acc[i] = fmaf(a.w, xv.w, acc[i]);
-    }
-  }
-  flush_rows(acc, y, row, lane);
-}
 
 // ------------------------------------------------------------ K6 / K7 ----
 constexpr int kRows = 4;                         // tile rows a warp owns
@@ -603,31 +557,271 @@ int launch_tiled_spmm(const void* tiles, const int* tile_rows,
                                   num_tiles, n, k, sm_count, s);
 }
 
+// ---------------------------------------------------------------- K5 ----
+// The compact operand (repro_torch.kernels.bsr_spmv._compact_tiles): the
+// stored nonzeros of the tile stream, tile by tile in visit order, each in
+// row-major order within its tile. nz_ptr[T + 1] bounds tile t's entries;
+// entry e holds pos[e] = (t % 32) << 10 | r << 7 | c (u16) and its value
+// vals[e] in the tile dtype. pos and vals are zero-padded to a multiple
+// of 8 entries. work[I][3] lists the warps' items: a chunk of 32 tiles and
+// a span lo : hi of its entries (lo a multiple of 8, at most 1,024
+// entries); a chunk with more entries (mawi_like's dense row) is split
+// over several warps, each adding its own sums into Y.
+constexpr int kSpmvWarps = 8;        // warps per block
+constexpr int kSpmvChunk = 32;       // tiles per warp = the local tile field
+constexpr int kSpmvEntries = 8;      // consecutive entries a lane takes
+constexpr int kSpmvPass = 32 * kSpmvEntries;
+constexpr int kPrepassWarps = 8;     // the X pre-pass: a warp per X block
+
+// eight consecutive operand values (32-byte aligned f32, 16-byte aligned
+// bf16), and eight packed positions (16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const unsigned short* p, float (&v)[8]) {
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load8(const unsigned short* p, int (&v)[8]) {
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = (int)(w[i] & 0xffffu);
+    v[2 * i + 1] = (int)(w[i] >> 16);
+  }
+}
+
+// K5's pre-pass (k = 1): finite[b] as x_block_finite_kernel gives it, a
+// warp per X block (a float4 of its 128 values a lane), and each block
+// zeroes its y_share floats of y (a multiple of 4).
+template <int DT>
+__global__ void __launch_bounds__(kPrepassWarps * 32)
+spmv_prepass_kernel(const float* __restrict__ x, int* __restrict__ finite,
+                    int n, float* __restrict__ y, long long m_pad,
+                    long long y_share) {
+  const int lane = threadIdx.x % 32;
+  const long long b =
+      (long long)blockIdx.x * kPrepassWarps + threadIdx.x / 32;
+  const long long r0 = b * kTileC;
+  if (r0 < n) {                                  // the same for the warp
+    const long long r1 = min(r0 + kTileC, (long long)n);
+    const long long e = r0 + 4LL * lane;
+    int ok = 1;
+    if (e + 4 <= r1) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(x + e));
+      ok = isfinite(x_in<DT>(v.x)) & isfinite(x_in<DT>(v.y)) &
+           isfinite(x_in<DT>(v.z)) & isfinite(x_in<DT>(v.w));
+    } else {
+      for (long long j = e; j < r1; ++j) ok &= isfinite(x_in<DT>(x[j]));
+    }
+    ok = __all_sync(kFull, ok);
+    if (lane == 0) finite[b] = ok ? 1 : 0;
+  }
+  const long long y0 = (long long)blockIdx.x * y_share;
+  const long long y1 = min(y0 + y_share, m_pad);
+  for (long long j = y0 + 4LL * threadIdx.x; j < y1;
+       j += 4LL * kPrepassWarps * 32)
+    *reinterpret_cast<float4*>(y + j) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// One warp per work item, a span of the entries of a chunk of 32
+// consecutive tiles; lane i holds tile t0 + i's row, column, X-block flag
+// and run (the chunk's consecutive tiles of one tile row). The lanes take
+// the span's entries 8 consecutive ones each, 256 a pass, all loads of a
+// pass issued before any use. Sums go to a shared slot per (run, tile
+// row); at the end each nonzero slot is added into Y once.
+template <int DT>
+__global__ void __launch_bounds__(kSpmvWarps * 32)
+tiled_spmv_kernel(const int* __restrict__ nz_ptr,
+                  const unsigned short* __restrict__ pos,
+                  const typename Tile<DT>::T* __restrict__ vals,
+                  const int* __restrict__ work, int items,
+                  const typename Tile<DT>::T* __restrict__ tiles,
+                  const int* __restrict__ tile_rows,
+                  const int* __restrict__ tile_cols,
+                  const float* __restrict__ x, const int* __restrict__ finite,
+                  float* __restrict__ y, int num_tiles, int n) {
+  __shared__ float sums[kSpmvWarps][kSpmvChunk * kTileR];
+  __shared__ int run_rows[kSpmvWarps][kSpmvChunk];
+  const int wi = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long item = (long long)blockIdx.x * kSpmvWarps + wi;
+  if (item >= items) return;                     // the whole warp
+  const long long t0 = (long long)__ldg(work + 3 * item) * kSpmvChunk;
+  const int lo = __ldg(work + 3 * item + 1);
+  const int hi = __ldg(work + 3 * item + 2);
+  const int nt = (int)min((long long)kSpmvChunk, num_tiles - t0);
+  int trow = -1, tcol = 0;
+  if (lane < nt) {
+    trow = __ldg(tile_rows + t0 + lane);
+    tcol = __ldg(tile_cols + t0 + lane);
+  }
+  // the span's entries: [e0, e1); the chunk's first item also walks the
+  // zeros of tiles over non-finite X blocks
+  const int c0 = __ldg(nz_ptr + t0);
+  const int e0 = max(c0, lo), e1 = hi;
+  const int fin = lane < nt && lo <= c0 ? __ldg(finite + tcol) : 1;
+  // a run starts where the tile row changes; run = the lane's run id
+  const int above = __shfl_up_sync(kFull, trow, 1);
+  const unsigned heads =
+      __ballot_sync(kFull, lane < nt && (lane == 0 || trow != above));
+  const int run = __popc(heads & (kFull >> (31 - lane))) - 1;
+  float* acc = sums[wi];
+  if (heads >> lane & 1u) run_rows[wi][run] = trow;
+#pragma unroll
+  for (int j = lane; j < kSpmvChunk * kTileR; j += 32) acc[j] = 0.f;
+  __syncwarp();
+
+  for (int eb = lo; eb < e1; eb += kSpmvPass) {
+    const int g = eb + lane * kSpmvEntries;
+    const bool any = g < e1 && g + kSpmvEntries > e0;
+    int ps[kSpmvEntries];
+    float a[kSpmvEntries], xv[kSpmvEntries];
+    int key[kSpmvEntries];
+    if (any) {
+      load8(pos + g, ps);
+      load8(vals + g, a);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kSpmvEntries; ++u) {
+        ps[u] = 0;
+        a[u] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSpmvEntries; ++u) {
+      const bool ok = any && g + u >= e0 && g + u < e1;
+      const int i = ps[u] >> 10 & (kSpmvChunk - 1);
+      const int c = __shfl_sync(kFull, tcol, i);
+      const int rn = __shfl_sync(kFull, run, i);
+      const long long xc = (long long)c * kTileC + (ps[u] & (kTileC - 1));
+      xv[u] = ok && xc < n ? __ldg(x + xc) : 0.f;
+      key[u] = ok ? rn * kTileR + (ps[u] >> 7 & (kTileR - 1)) : -1;
+    }
+    // the lane's consecutive entries of one (run, row) summed, then one
+    // shared add
+    float s = 0.f;
+    int cur = -1;
+#pragma unroll
+    for (int u = 0; u < kSpmvEntries; ++u) {
+      if (key[u] < 0) continue;
+      if (key[u] != cur) {
+        if (cur >= 0) atomicAdd(acc + cur, s);
+        cur = key[u];
+        s = 0.f;
+      }
+      s = fmaf(a[u], x_in<DT>(xv[u]), s);
+    }
+    if (cur >= 0) atomicAdd(acc + cur, s);
+  }
+
+  // a tile over a non-finite X block also adds its stored zeros' 0 * x
+  // (NaN where x is NaN or Inf), read from the dense tile
+  unsigned bad = __ballot_sync(kFull, !fin);
+  while (bad) {
+    const int i = __ffs(bad) - 1;
+    bad &= bad - 1u;
+    const int c = __shfl_sync(kFull, tcol, i);
+    const int rn = __shfl_sync(kFull, run, i);
+    const long long xc = (long long)c * kTileC + lane * 4;
+    float xq[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      xq[j] = xc + j < n ? x_in<DT>(__ldg(x + xc + j)) : 0.f;
+    const typename Tile<DT>::T* tp =
+        tiles + (t0 + i) * kTileElems + lane * 4;
+#pragma unroll
+    for (int r = 0; r < kTileR; ++r) {
+      const float4 q = Tile<DT>::load4(tp + r * kTileC);
+      const float qa[4] = {q.x, q.y, q.z, q.w};
+      float z = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (qa[j] == 0.f) z = fmaf(qa[j], xq[j], z);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        z += __shfl_xor_sync(kFull, z, off);
+      if (lane == 0) atomicAdd(acc + rn * kTileR + r, z);
+    }
+  }
+  __syncwarp();
+
+  // one add into Y per (run, row) with a nonzero sum: a zero sum would not
+  // change Y, which starts at +0
+  const int runs = __popc(heads);
+  for (int j = lane; j < runs * kTileR; j += 32) {
+    const float s = acc[j];
+    if (s != 0.f)
+      atomicAdd(y + (long long)run_rows[wi][j / kTileR] * kTileR +
+                    j % kTileR, s);
+  }
+}
+
+template <int DT>
+int launch_tiled_spmv(const int* nz_ptr, const unsigned short* pos,
+                      const void* vals, const int* work, int items,
+                      const void* tiles, const int* tile_rows,
+                      const int* tile_cols, const float* x, int* finite,
+                      float* y, int num_tiles, int n, long long m_pad,
+                      cudaStream_t s) {
+  using T = typename Tile<DT>::T;
+  const long long xblocks = ((long long)n + kTileC - 1) / kTileC;
+  const long long pre = (xblocks + kPrepassWarps - 1) / kPrepassWarps;
+  // each pre-pass block zeroes a multiple of 4 of y's m_pad (a multiple
+  // of 8) floats
+  const long long y_share = ((m_pad + pre - 1) / pre + 3) & ~3LL;
+  spmv_prepass_kernel<DT><<<(unsigned)pre, kPrepassWarps * 32, 0, s>>>(
+      x, finite, n, y, m_pad, y_share);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = ((long long)items + kSpmvWarps - 1) / kSpmvWarps;
+  tiled_spmv_kernel<DT><<<(unsigned)blocks, kSpmvWarps * 32, 0, s>>>(
+      nz_ptr, pos, static_cast<const T*>(vals), work, items,
+      static_cast<const T*>(tiles), tile_rows, tile_cols, x, finite, y,
+      num_tiles, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// K5. tiles [T, 8, 128] (tile_dtype 0 = f32, 1 = bf16; 16-byte aligned),
-// tile_rows / tile_cols i32[T], x f32[n] (16-byte aligned), y f32[m_pad]
-// zeroed by the caller. Returns cudaGetLastError().
-int tiled_spmv_launch(const void* tiles, int tile_dtype, const int* tile_rows,
-                      const int* tile_cols, const float* x, float* y,
-                      int num_tiles, int n, void* stream) {
-  if (num_tiles <= 0) return 0;
-  const long long warps = ((long long)num_tiles + kSpmvRun - 1) / kSpmvRun;
-  const long long blocks = (warps + kSpmvWarps - 1) / kSpmvWarps;
+// K5. The compact operand: nz_ptr i32[T + 1], pos u16 and vals (tile
+// dtype) padded to a multiple of 8 entries (pos 16-byte, vals 32-byte
+// aligned), work i32[items][3]; tiles [T, 8, 128] (tile_dtype 0 = f32,
+// 1 = bf16; read only over non-finite X blocks), tile_rows / tile_cols
+// i32[T], x f32[n] (16-byte aligned), finite i32[ceil(n / 128)] scratch,
+// y f32[m_pad] (16-byte aligned), zeroed here. Launches the pre-pass (X
+// flags, y zeroed), then the multiply. Returns cudaGetLastError().
+int tiled_spmv_launch(const int* nz_ptr, const void* pos, const void* vals,
+                      const int* work, int items, const void* tiles,
+                      int tile_dtype, const int* tile_rows,
+                      const int* tile_cols, const float* x, int* finite,
+                      float* y, int num_tiles, int n, long long m_pad,
+                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (tile_dtype == kF32) {
-    tiled_spmv_kernel<kF32><<<(unsigned)blocks, kSpmvWarps * 32, 0, s>>>(
-        (const float*)tiles, tile_rows, tile_cols, x, y, num_tiles, n);
-  } else if (tile_dtype == kBF16) {
-    tiled_spmv_kernel<kBF16><<<(unsigned)blocks, kSpmvWarps * 32, 0, s>>>(
-        (const unsigned short*)tiles, tile_rows, tile_cols, x, y, num_tiles,
-        n);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (num_tiles <= 0 || items <= 0)
+    return (int)cudaMemsetAsync(y, 0, (size_t)m_pad * sizeof(float), s);
+  if (n <= 0 || m_pad % 4) return (int)cudaErrorInvalidValue;
+  const unsigned short* p = static_cast<const unsigned short*>(pos);
+  if (tile_dtype == kF32)
+    return launch_tiled_spmv<kF32>(nz_ptr, p, vals, work, items, tiles,
+                                   tile_rows, tile_cols, x, finite, y,
+                                   num_tiles, n, m_pad, s);
+  if (tile_dtype == kBF16)
+    return launch_tiled_spmv<kBF16>(nz_ptr, p, vals, work, items, tiles,
+                                    tile_rows, tile_cols, x, finite, y,
+                                    num_tiles, n, m_pad, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K6 and K7: the same launch, which reads the stream once whatever K6's

@@ -39,6 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # C entry point -> (library, argtypes); every one returns int
 SIGNATURES = {
@@ -50,9 +51,10 @@ SIGNATURES = {
     "merge_spmm_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,
                                              _P, _I, _I, _I, _P]),
     "merge_spmv_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,
-                                             _P, _I, _I, _P]),
+                                             _P, _I, _I, _L, _P]),
     "merge_carry_fixup_launch": ("merge", [_P, _P, _P, _I, _I, _P]),
-    "tiled_spmv_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _I, _I, _P]),
+    "tiled_spmv_launch": ("tiled", [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                                    _P, _P, _I, _I, _L, _P]),
     "tiled_spmm_launch": ("tiled", [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _P]),
     "moe_group_matmul_launch": ("moe", [_P, _I, _P, _P, _P, _P, _I, _I,
@@ -181,8 +183,12 @@ def sm_count(device: torch.device) -> int:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as a pointer int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as a pointer int (the
+    raw handle, without building a ``torch.cuda.Stream``: a few
+    microseconds less per launch, which the single-vector kernels feel)."""
+    idx = t.get_device()
+    return torch._C._cuda_getCurrentRawStream(
+        idx if idx >= 0 else torch.cuda.current_device())
 
 
 def require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:

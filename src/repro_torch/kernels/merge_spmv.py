@@ -60,6 +60,9 @@ class MergePlan:
     row_starts: torch.Tensor   # int32[P+1]
     span_len: torch.Tensor     # int32[P] — real items per span
     r_width: int               # R — the reference's padded local row width
+    # the arrays the kernel wrappers last validated (``_check_plan``)
+    _checked: tuple = dataclasses.field(default=(), init=False, repr=False,
+                                        compare=False)
 
     @property
     def num_spans(self) -> int:
@@ -170,6 +173,12 @@ def carry_out_fixup_plain(y: torch.Tensor, carry_row: torch.Tensor,
 # kernel wrappers
 # --------------------------------------------------------------------------
 def _check_plan(plan: MergePlan) -> None:
+    """Validate the plan's arrays before their pointers go to C; a plan
+    whose arrays are the ones last checked is not checked again."""
+    arrays = (plan.cols, plan.vals, plan.seg, plan.row_starts,
+              plan.span_len)
+    if all(a is b for a, b in zip(arrays, plan._checked)):
+        return
     P = plan.num_spans
     _lib.require(plan.cols, "plan.cols", torch.int32, 2)
     _lib.require(plan.vals, "plan.vals", torch.float32, 2)
@@ -178,6 +187,7 @@ def _check_plan(plan: MergePlan) -> None:
     _lib.require(plan.span_len, "plan.span_len", torch.int32, 1)
     if plan.row_starts.shape[0] != P + 1 or plan.span_len.shape[0] != P:
         raise ValueError("plan.row_starts / plan.span_len do not match P")
+    plan._checked = arrays
 
 
 def merge_spmv_partials(plan: MergePlan, x: torch.Tensor, m: int
@@ -192,14 +202,15 @@ def merge_spmv_partials(plan: MergePlan, x: torch.Tensor, m: int
     _check_plan(plan)
     _lib.require(x, "x", torch.float32, 1)
     P, D = plan.cols.shape
-    y = torch.zeros(m, dtype=torch.float32, device=x.device)
-    carry_row = torch.empty(2 * P, dtype=torch.int32, device=x.device)
-    carry_val = torch.empty(2 * P, dtype=torch.float32, device=x.device)
+    # one allocation: y (zeroed by the entry), carry_row, carry_val
+    buf = torch.empty(m + 4 * P, dtype=torch.float32, device=x.device)
+    y, carry_val = buf[:m], buf[m + 2 * P:]
+    carry_row = buf[m:m + 2 * P].view(torch.int32)
     fn = "merge_spmv_partials_launch"
     _lib.check(_lib.entry(fn)(
         plan.cols.data_ptr(), plan.vals.data_ptr(), plan.seg.data_ptr(),
         plan.row_starts.data_ptr(), plan.span_len.data_ptr(), x.data_ptr(),
-        y.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(), P, D,
+        y.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(), P, D, m,
         _lib.stream_of(x)), fn)
     merge_spmv_partials.launches += 1
     return y, carry_row, carry_val

@@ -66,6 +66,10 @@ class TiledSparse:
     beta: int                   # macro block size used for ordering
     order: str                  # algorithm preset name
     nnz: int                    # true nonzeros (before fill-in)
+    # K5's zero-free copy of the tile stream, built at its first launch
+    # (``kernels.bsr_spmv._compact_tiles``); not part of the format
+    _compact: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def num_tiles(self) -> int:

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import interop
 from repro_torch.core import coo_to_csr
+from repro_torch.core.convert import ALGORITHM_SPECS
 from repro_torch.data import matrices as TM
 from repro_torch.kernels import bsr_spmv as TBSR
 from repro_torch.kernels import coo_to_tiled
@@ -390,12 +392,24 @@ def _tiled(cuda, tiles, rows, cols, shape, dtype=torch.float32):
                        shape, 0, "csb", nnz)
 
 
+def _same_places_close(got, want):
+    """NaN and Inf at the same places, the finite values within the
+    tolerance of the finite ones."""
+    tol = 1e-4 * max(1.0, float(want[want.isfinite()].abs().max())
+                     if bool(want.isfinite().any()) else 1.0)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    fin = want.isfinite()
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0
+    assert err <= tol, (err, tol)
+
+
 def _k67_close(ts, X, kts):
     """K7 and K6 (each column tile in ``kts``) against their plain
     versions, each launch counted once; NaN and Inf must match."""
     want = TBSR.bsr_spmm_plain(ts, X)
-    tol = 1e-4 * max(1.0, float(want[want.isfinite()].abs().max())
-                     if bool(want.isfinite().any()) else 1.0)
     runs = [(TBSR.bsr_spmm, lambda: TBSR.bsr_spmm(ts, X))]
     runs += [(TK.tiled_spmm, (lambda kt=kt: TK.tiled_spmm(ts, X, k_tile=kt)))
              for kt in kts]
@@ -404,13 +418,7 @@ def _k67_close(ts, X, kts):
         got = run()
         torch.cuda.synchronize()
         assert wrapper.launches == before + 1
-        assert got.shape == want.shape and got.dtype == torch.float32
-        assert torch.equal(got.isnan(), want.isnan())
-        assert torch.equal(got.isinf(), want.isinf())
-        assert torch.equal(got[got.isinf()], want[want.isinf()])
-        fin = want.isfinite()
-        err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0
-        assert err <= tol, (err, tol)
+        _same_places_close(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -479,6 +487,176 @@ def test_tiled_spmm_nonfinite_x_through_stored_zeros(cuda, dtype):
         want = TBSR.bsr_spmm_plain(ts, X)
         assert int(want.isnan().sum()) >= 8
         _k67_close(ts, X, sorted({k, max(k // 2, 1)}))
+
+
+# --------------------------------------------------------------------------
+# K5 on its zero-free operand, K4's block-wide reduce-by-key
+# --------------------------------------------------------------------------
+BLOCKED_ORDERS = ("csb", "csbh", "bcoh", "bcohc", "bcohch", "bcohchp",
+                  "mergeb", "mergebh")
+
+
+def _k5_close(ts, x):
+    """K5 against its plain version, its launch counted once; NaN and Inf
+    must match."""
+    want = TBSR.bsr_spmv_plain(ts, x)
+    before = TBSR.bsr_spmv.launches
+    got = TBSR.bsr_spmv(ts, x)
+    torch.cuda.synchronize()
+    assert TBSR.bsr_spmv.launches == before + 1
+    _same_places_close(got, want)
+    return want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("algo", BLOCKED_ORDERS)
+def test_k5_compact_operand_matches_plain(cuda, algo, dtype):
+    """The redesigned K5 against its plain version on every blocked order,
+    f32 and bf16 tiles, ragged m and n, a dense row over many chunks; then
+    an X with a NaN, an Inf and a finite value that rounds to Inf in bf16,
+    in columns that only stored zeros meet."""
+    rng = np.random.default_rng(6)
+    m, n = 3001, 2903
+    q = [700, 1500, 2900]                        # columns left empty
+    rows = np.concatenate([rng.integers(0, m, 20000), np.full(2500, 7)])
+    cols = np.concatenate([rng.integers(0, n, 20000),
+                           rng.choice(n, 2500, replace=False)])
+    keep = ~np.isin(cols, q)
+    coo = TM.as_coo((rows[keep], cols[keep], rng.standard_normal(
+        rows.size).astype(np.float32)[keep], (m, n)), device=cuda)
+    bands = 4 if ALGORITHM_SPECS[algo].scheduling == "static_rows" else 0
+    ts = coo_to_tiled(coo, algo, dtype=dtype, num_bands=bands)
+    x = torch.randn(n, device=cuda)
+    _k5_close(ts, x)
+    if dtype == torch.float32:
+        _close(TOPS.bsr_spmv(ts, x), spmm_ref(coo, x))
+    x[q[0]], x[q[1]], x[q[2]] = float("nan"), float("-inf"), 3.4e38
+    want = _k5_close(ts, x)
+    assert int(want.isnan().sum()) >= 16
+
+
+def test_k5_edge_streams_and_operand_cache(cuda):
+    """An all-zero tile, the empty stream, a tile row of 200 tiles (seven
+    chunks), tile rows alternating inside one chunk, a dense tile; the
+    operand built once per TiledSparse and rebuilt after an in-place
+    change."""
+    rng = np.random.default_rng(7)
+    t = np.zeros((3, 8, 128), np.float32)
+    t[1, 3, 5], t[2, 0, 127], t[2, 7, 0] = 2.0, -1.0, 3.0
+    _k5_close(_tiled(cuda, t, [0, 1, 1], [0, 0, 1], (16, 256)),
+              torch.randn(256, device=cuda))
+    ts = _tiled(cuda, np.zeros((0, 8, 128), np.float32), [], [], (16, 256))
+    y = TBSR.bsr_spmv(ts, torch.randn(256, device=cuda))
+    assert y.shape == (16,) and float(y.abs().max()) == 0.0
+    n = 128 * 200
+    t = np.zeros((200, 8, 128), np.float32)
+    t[:, 3, :] = rng.standard_normal((200, 128))
+    t[::7, 5, ::9] = 1.0
+    ts = _tiled(cuda, t, np.full(200, 2), np.arange(200), (24, n))
+    _k5_close(ts, torch.randn(n, device=cuda))
+    t = rng.standard_normal((100, 8, 128)).astype(np.float32)
+    t[rng.random(t.shape) < 0.9] = 0.0
+    t[50] = rng.standard_normal((8, 128))
+    ts = _tiled(cuda, t, np.arange(100) % 2, np.arange(100) % 3,
+                (16, 3 * 128 - 5), torch.bfloat16)
+    x = torch.randn(3 * 128 - 5, device=cuda)
+    _k5_close(ts, x)
+    c = TBSR._compact_tiles(ts)
+    _k5_close(ts, x)
+    assert TBSR._compact_tiles(ts) is c
+    ts.tiles.mul_(2)
+    _k5_close(ts, x)
+    assert ts._compact is not c
+
+
+def test_stream_of_is_the_current_stream(cuda):
+    """Every wrapper passes ``_lib.stream_of`` to its C entry: it reads
+    the raw handle through a private PyTorch call, which must still exist
+    and name the stream that ``torch.cuda`` calls current, also inside a
+    ``torch.cuda.stream`` block and for a tensor on the current device."""
+    from repro_torch.kernels import _lib
+    t = torch.zeros(1, device=cuda)
+    assert _lib.stream_of(t) == torch.cuda.current_stream(cuda).cuda_stream
+    s = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(s):
+        assert _lib.stream_of(t) == s.cuda_stream != 0
+    assert _lib.stream_of(t) == torch.cuda.current_stream(cuda).cuda_stream
+
+
+def _k4_plans(cuda):
+    """The reference's merge plan carried across by interop (as the
+    reference builds it: D = 39, its spans without a nonzero padded to 39
+    items of local row 0) and the port's own plan of the same matrix (those
+    spans empty), 203 spans; row 11 crosses more than 20 of them.
+    ``tests/test_torch_spmv_redesign.py`` holds both to the reference."""
+    m = n = 3000
+    rng = np.random.default_rng(8)
+    diag = np.r_[0:1000, 2600:3000]
+    rows = np.concatenate([np.full(n, 11), diag,
+                           rng.integers(2600, 3000, 500)])
+    cols = np.concatenate([np.arange(n), diag, rng.integers(0, n, 500)])
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    coo = TM.as_coo((rows, cols, vals, (m, n)), device=cuda)
+    own = TMS.merge_plan(coo_to_csr(coo), 203)
+    carried = interop.merge_plan_from_arrays(
+        {"cols": own.cols.cpu().numpy(), "vals": own.vals.cpu().numpy(),
+         "seg": own.seg.cpu().numpy(),
+         "row_starts": own.row_starts.cpu().numpy(),
+         "r_width": own.r_width}, device=cuda)
+    assert own.depth % 4 and bool((own.span_len == 0).any())
+    assert bool((carried.span_len == carried.depth).sum() > 20)
+    return coo, {"carried": carried, "own": own}
+
+
+@pytest.mark.parametrize("which", ["carried", "own"])
+def test_k4_reduce_by_key_matches_plain(cuda, which):
+    """K4 against its plain version (carry rows equal), bitwise equal
+    across two launches, and the whole SpMV against the oracle."""
+    coo, plans = _k4_plans(cuda)
+    plan = plans[which]
+    m = coo.shape[0]
+    x = torch.randn(coo.shape[1], device=cuda)
+    before = TMS.merge_spmv_partials.launches
+    got = TMS.merge_spmv_partials(plan, x, m)
+    again = TMS.merge_spmv_partials(plan, x, m)
+    torch.cuda.synchronize()
+    assert TMS.merge_spmv_partials.launches == before + 2
+    y, cr, cv = TMS.merge_partials_plain(plan, x[:, None], m)
+    assert torch.equal(got[1], cr) and int((cr == 11).sum()) >= 20
+    _close(got[0], y[:, 0])
+    _close(got[2], cv[:, 0])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    full = TMS.carry_out_fixup(got[0].clone(), got[1], got[2])
+    _close(full, spmm_ref(coo, x))
+
+
+@pytest.mark.parametrize("k", [8, 33])
+def test_k2_unchanged_on_the_carried_plan(cuda, k):
+    """K2 keeps its own kernel: against its plain version on both plans."""
+    coo, plans = _k4_plans(cuda)
+    X = torch.randn((coo.shape[1], k), device=cuda)
+    for plan in plans.values():
+        got = TK._merge_spmm_partials(plan, X, coo.shape[0])
+        y, cr, cv = TMS.merge_partials_plain(plan, X, coo.shape[0])
+        assert torch.equal(got[1], cr)
+        _close(got[0], y)
+        _close(got[2], cv)
+
+
+@pytest.mark.parametrize("name", ["hhh_like", "mawi_like", "road_like"])
+def test_k4_matches_plain_on_the_suite(cuda, name):
+    """K4 at the suite's shapes, its default span count, and a deep one."""
+    coo = _matrix(cuda, name, 0.2)
+    csr = coo_to_csr(coo)
+    x = torch.randn(coo.shape[1], device=cuda)
+    for spans in (None, 16):
+        plan = TMS.cached_merge_plan(csr, spans)
+        got = TMS.merge_spmv_partials(plan, x, coo.shape[0])
+        y, cr, cv = TMS.merge_partials_plain(plan, x[:, None], coo.shape[0])
+        assert torch.equal(got[1], cr)
+        _close(got[0], y[:, 0])
+        _close(got[2], cv[:, 0])
+    _close(TOPS.merge_spmv(csr, x), spmm_ref(coo, x))
 
 
 def test_moe_layer_kernel_route_matches_plain(cuda):
