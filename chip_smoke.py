@@ -24,8 +24,8 @@ table and a final status line:
 
 Phases:
   1. build the kernels (nvcc, sm_90a, one process per source) and print
-     the ``-Xptxas -v`` registers, spills and shared memory of K6/K7, K5
-     and K4;
+     the ``-Xptxas -v`` registers, spills and shared memory of K6/K7, K5,
+     K4, K3 and both K9 kernels;
   2. kernel vs plain version for K1 (SELL-C-σ), K3 (its transpose), K2
      (merge-path SpMM), K4 (merge-path SpMV) and the carry step on
      hhh_like --scale 64, mawi_like --scale 4 and road_like --scale 8 for
@@ -33,7 +33,10 @@ Phases:
      torch.sparse CSR (of A^T for K3) and bound times, K4 also with the
      bound of its plan's stream and its time before its redesign, and
      the whole A^T X multiply (slot-X gather + K3) against the torch
-     oracle;
+     oracle; on hhh_like at k = 32, where K3's time goes
+     (``k3_breakdown``: K3 in 1, 2, 3, 4, 6 and 8 column bands, each
+     held against the plain answer, the zeroing of Y, and one pass into
+     a Y folded to a quarter of L2, whose adds all hit L2);
   3. serve path A: --algorithm sellcs (K1), one flush checked against
      the torch oracle;
   4. serve path B: --migrate force (K2, K4, carry step, one plan swap);
@@ -89,14 +92,21 @@ Phases:
      N = 1024), 32 experts, top-8, over a prefill of 4,096 tokens (32,768
      rows, T_pad 36,864) and a decode step of 32 tokens (256 rows, T_pad
      4,352), skewed seeded group sizes, bf16 rows times f32 weights; a
-     decode case with 20 empty groups; f32 x f32 at the reduced widths
-     (64, padded to 128) — with card, plain, bound and library ms (the
-     library: ``torch.bmm`` of the live tiles by their experts' weights,
-     both gathered outside the timed window); then ``serve --mode lm
+     decode case with 20 empty groups, one with eight groups of exactly
+     32 rows and one with f32 rows; f32 x f32 at the reduced widths
+     (64, padded to 128) — each through the kernel
+     ``kernels.ops.moe_group_matmul`` routes it to (the tiled kernel, or
+     the decode kernel for few rows an expert, which must also equal the
+     tiled kernel bitwise), with card, tiled-kernel, plain, bound and
+     library ms (the library: ``torch.bmm`` of the live tiles by their
+     experts' weights, both gathered outside the timed window); the two
+     kernels at 4–128 rows an expert (``k9_crossover``); then ``serve
+     --mode lm
      --arch granite-moe-1b-a400m --batch 32 --prompt-len 128 --gen 16
      --seed 0`` (the full config, 24 layers, 1.33e9 random parameters on
-     the card; 2 layers with --quick), which must launch K9 3 x layers x
-     16 times and generate tokens in range; every MoE layer of its
+     the card; 2 layers with --quick), which must launch K9's tiled
+     kernel 3 x layers times (prefill) and its decode kernel 3 x layers x
+     15 times and generate tokens in range; every MoE layer of its
      prefill, fed that run's own input, must give the same output through
      K9, its plain version and the per-expert route within ``1e-2 *
      max(1, max|other|)`` (the bf16 rounding of the layer output), and the
@@ -133,7 +143,10 @@ read once, the f32 weights of every expert that owns a row read once and
 the f32 output written once, or 2 flops per multiply-add at the float32
 peak (the weights are f32 and multiplied unrounded); its ``kernels``
 entry is one MoE layer (gate + up + down) of the served prefill, with the
-decode step's layer in ``decode_*``. The stdout ends with a ``rows``
+decode step's layer in ``decode_*`` (the decode kernel; the tiled kernel
+on the same operands in ``decode_tiled_ms``), and its ``launches`` are
+both kernels' (the decode kernel's in ``decode_launches``). The stdout
+ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
 latency, batcher phases and conversion times; the symmetric, GMRES and
 autograd phases; the mesh phase; the LM phase), the card line, the
@@ -226,7 +239,8 @@ def counters():
             "K3": SK.sellcs_slots_t, "K4": MS.merge_spmv_partials,
             "carry": MS.carry_out_fixup, "K5": BS.bsr_spmv,
             "K6": SK.tiled_spmm, "K7": BS.bsr_spmm,
-            "K9": MG.moe_group_matmul_padded}
+            "K9": MG.moe_group_matmul_padded,
+            "K9d": MG.moe_group_matmul_decode}
 
 
 def reset_counts():
@@ -311,7 +325,8 @@ PREV_MS = {("road_like/csb", MAIN_K, "K6"): 4.955,
            ("mawi_like/csb", 1, "K5"): 1.0786,
            ("hhh_like", 1, "K4"): 1.0756,
            ("mawi_like", 1, "K4"): 0.0650,
-           ("road_like", 1, "K4"): 0.1910}
+           ("road_like", 1, "K4"): 0.1910,
+           ("hhh_like", MAIN_K, "K3"): 1.804}
 # K4 and K5 take tens of microseconds: they and their library calls are
 # timed as the mean of one longer window
 SHORT_REPS = 250
@@ -391,6 +406,94 @@ def ptxas_lines(log: str, name: str) -> list:
     return out
 
 
+def props_l2() -> int:
+    """The card's L2 size in bytes (what K3's column bands are cut by)."""
+    import torch
+    from repro_torch.kernels import _lib
+    return _lib.l2_bytes(torch.device("cuda"))
+
+
+K3_BANDS = (1, 2, 3, 4, 6, 8)
+
+
+def k3_breakdown(name: str, sc, xs, n: int, k: int, reps: int, yp) -> dict:
+    """Where K3's time goes at one (matrix, k): the kernel in 1, 2, 3, 4,
+    6 and 8 column passes (each held against the plain answer ``yp``),
+    the zeroing of Y alone, and one pass on a copy of the stream whose
+    columns are folded into a Y row range of a quarter of L2 (the same
+    stream and adds, every add an L2 hit): the gap between that and the
+    one-pass time is what Y's read-modify-write through HBM costs."""
+    import torch
+    from repro_torch.spmm import kernels as SK
+
+    def run(cols, bands, n_out):
+        y = torch.zeros((n_out, k), dtype=torch.float32, device="cuda")
+        SK._sellcs_t_launch(sc.data, cols, sc.slice_of, sc.slice_ptr,
+                            sc.row_len, xs, y, sc.chunk, bands)
+        return y
+
+    out = {"matrix": name, "k": k, "kernel": "K3 breakdown",
+           "auto_bands": SK.column_bands(n, k, props_l2()),
+           "y_bytes": 4 * n * k, "l2_bytes": props_l2(), "bands_ms": {}}
+    for bands in K3_BANDS:
+        y = run(sc.cols, bands, n)
+        torch.cuda.synchronize()
+        err, tol = max_err(y, yp), tol_of(yp)
+        if err > tol:
+            raise AssertionError(f"K3 in {bands} bands disagrees on {name}"
+                                 f" k={k}: {err:.3g} > {tol:.3g}")
+        out["bands_ms"][bands] = cuda_ms(lambda: run(sc.cols, bands, n),
+                                         reps)
+        del y
+    out["zero_y_ms"] = cuda_ms(lambda: torch.zeros(
+        (n, k), dtype=torch.float32, device="cuda"), reps)
+    n_fit = max(props_l2() // 4 // (4 * k), 1)
+    folded = torch.remainder(sc.cols, n_fit).to(torch.int32)
+    out["l2_fit_rows"] = n_fit
+    out["l2_fit_ms"] = cuda_ms(lambda: run(folded, 1, n_fit), reps)
+    del folded
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke]   K3 breakdown {name} k={k}: Y "
+          f"{out['y_bytes'] / 2 ** 20:.0f} MiB"
+          f" (L2 {out['l2_bytes'] / 2 ** 20:.0f} MiB, auto bands "
+          f"{out['auto_bands']}); " + ", ".join(
+              f"{b} band(s) {t:.4f} ms" for b, t in out["bands_ms"].items())
+          + f"; zeroing Y {out['zero_y_ms']:.4f} ms; one pass into "
+          f"{n_fit} rows (L2-resident Y) {out['l2_fit_ms']:.4f} ms",
+          flush=True)
+    return out
+
+
+def k3_shard_rows(sharded, Xt, label: str) -> dict:
+    """K3 on every shard of a partition (the arrays the mesh transpose
+    hands it: a merge span may start and end mid-slice) against its plain
+    version."""
+    from repro_torch.spmm import kernels as SK
+    from repro_torch.spmm.reference import sellcs_slot_x
+    C = sharded.chunk
+    xs = sellcs_slot_x(sharded.row_perm, Xt, sharded.shape[0])
+    worst = {"case": f"K3 shards {label}", "max_abs_err": 0.0, "tol": 0.0}
+    for sh in sharded.shards:
+        if sh.data.shape[0] == 0:
+            continue
+        win = xs[sh.t_first * C:(sh.t_first + sh.t_ptr.shape[0] - 1) * C]
+        n_out = (int(sh.col_map.shape[0]) if sh.col_map is not None
+                 else sharded.shape[1])
+        args = (sh.data, sh.cols, sh.t_ids, sh.t_ptr, sh.t_row_len, win)
+        yk = SK.sellcs_slots_t(*args, n_out=n_out, chunk=C)
+        yp = SK.sellcs_slots_t_plain(*args, n_out=n_out, chunk=C)
+        err, tol = max_err(yk, yp), tol_of(yp)
+        if err > tol:
+            raise AssertionError(f"K3 on a shard of {label} disagrees with "
+                                 f"its plain version: {err:.3g} > {tol:.3g}")
+        if err / tol >= worst["max_abs_err"] / max(worst["tol"], 1e-30):
+            worst.update(max_abs_err=err, tol=tol)
+    print(f"[chip_smoke]   K3 vs plain on the shards of {label}: worst "
+          f"max_abs_err {worst['max_abs_err']:.3g} (tol {worst['tol']:.3g})"
+          ", ok", flush=True)
+    return worst
+
+
 def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
                   shape_rows: list, main: bool):
     """Phase 2 on one matrix: every kernel against its plain version.
@@ -464,7 +567,12 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
         b, by = bound_ms(spmm_bytes(nnz, n, m, k), 2.0 * nnz * k)
         rows.append(("K3", max_err(yk, yp), tol_of(yp), cuda_ms(k3, reps),
                      cuda_ms(k3p, max(reps // 2, 1)), b, by,
-                     cuda_ms(lambda: At_lib @ Xm, reps)))
+                     cuda_ms(lambda: At_lib @ Xm, reps),
+                     {"bands": SK.column_bands(
+                         n, k, props_l2()), "prev_ms": PREV_MS.get(
+                             (name, k, "K3"))}))
+        if main and k == MAIN_K:
+            shape_rows.append(k3_breakdown(name, sc, xs, n, k, reps, yp))
         # the whole A^T X multiply (slot-X gather + K3) against the oracle
         yt = SK.sellcs_spmm(sc, Xm, op="T")
         ref_t = spmm_coo_t(coo, Xm)
@@ -1373,6 +1481,8 @@ def run_mesh(coo, sc, k1_ms: float, scale_road: float, scale_mawi: float,
                       ("merge4 op=T", merge("merge4", op="T", x=Xt))):
         _, r = mesh_case(label, fn, Xt, ref_t, reps, ("K3",))
         rows.append(r)
+    for label in ("row/cx", "merge4"):
+        rows.append(k3_shard_rows(parts[label], Xt, label))
     print(f"[chip_smoke]   single-device K1 at k={MAIN_K}: {k1_ms:.4f} ms "
           "(phase 2)", flush=True)
     k8 = k8_rows(coo, parts["row/cx"], X, reps)
@@ -1511,37 +1621,68 @@ def skewed_sizes(tokens: int, E: int, top: int, gen, empty: int = 0):
     return torch.bincount(pick.reshape(-1), minlength=E)
 
 
-def k9_case(label, tokens: int, E: int, top: int, kin: int, nout: int,
-            lhs_dtype, reps: int, gen, empty: int = 0) -> dict:
-    """K9 on one grouped GEMM: the group padding of ``kernels.ops`` over
-    skewed group sizes, the kernel against its plain version, timed with
-    its plain version, its bound and the library yardstick: ``torch.bmm``
-    of the live m-tiles (f32) by their experts' weights, both gathered
-    outside the timed window (no single PyTorch call takes per-tile expert
-    ids)."""
+def k9_operands(rows: int, E: int, kin: int, nout: int, lhs_dtype, gen,
+                sizes):
+    """Tokens, zero-padded weights and the group padding of one K9 case."""
     import torch
-    from repro_torch.kernels import moe_group_matmul as MG
     from repro_torch.kernels import ops as KO
-    sizes = skewed_sizes(tokens, E, top, gen, empty)
-    rows = tokens * top
     kp = -(-kin // 128) * 128
     np_ = -(-nout // 128) * 128
     xs = torch.randn((rows, kin), generator=gen, device="cuda").to(lhs_dtype)
     w = torch.randn((E, kp, np_), generator=gen, device="cuda") * kin ** -0.5
     w[:, kin:] = 0.0
     w[:, :, nout:] = 0.0
-    gp = KO.moe_group_pad(xs, sizes, E, kp)
+    return xs, w, KO.moe_group_pad(xs, sizes, E, kp)
 
-    def kern():
+
+def k9_case(label, tokens: int, E: int, top: int, kin: int, nout: int,
+            lhs_dtype, reps: int, gen, empty: int = 0, sizes=None) -> dict:
+    """K9 on one grouped GEMM: the group padding of ``kernels.ops`` over
+    skewed group sizes (or ``sizes``), the kernel of the route
+    ``kernels.ops.moe_group_matmul`` takes for these shapes against its
+    plain version, timed with its plain version, its bound and the
+    library yardstick: ``torch.bmm`` of the live m-tiles (f32) by their
+    experts' weights, both gathered outside the timed window (no single
+    PyTorch call takes per-tile expert ids). Where the route is the
+    decode kernel, it must also equal the tiled kernel bitwise (both
+    given the tiles' row counts, and on the live rows without them), and
+    the tiled kernel's time is kept beside it."""
+    import torch
+    from repro_torch.kernels import moe_group_matmul as MG
+    from repro_torch.kernels import ops as KO
+    if sizes is None:
+        sizes = skewed_sizes(tokens, E, top, gen, empty)
+    rows = tokens * top
+    xs, w, gp = k9_operands(rows, E, kin, nout, lhs_dtype, gen, sizes)
+    kp = int(w.shape[1])
+    decode = KO.takes_decode_kernel(rows, E)
+
+    def tiled():
         return MG.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
                                           n_rows=gp.n_rows)
 
+    def dec():
+        return MG.moe_group_matmul_decode(gp.lhs, w, gp.tile_expert,
+                                          gp.tile_rows, n_rows=gp.n_rows)
+
     def plain():
         return MG.moe_group_matmul_padded_plain(gp.lhs, w, gp.tile_expert,
-                                                n_rows=gp.n_rows)
+                                                n_rows=gp.n_rows,
+                                                tile_rows=gp.tile_rows)
+    kern = dec if decode else tiled
     yk, yp = kern(), plain()
     torch.cuda.synchronize()
     err, tol = max_err(yk, yp), tol_of(yp)
+    bitwise = None
+    if decode:
+        yt = MG.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
+                                        n_rows=gp.n_rows,
+                                        tile_rows=gp.tile_rows)
+        live = (torch.arange(128, device="cuda")[None, :]
+                < gp.tile_rows[:, None]).reshape(-1)
+        bitwise = bool(torch.equal(yk, yt)) and bool(
+            torch.equal(yk[live], tiled()[live]))
+        del yt
     # the whole ops-level multiply (padding, K9, unpadding) against the
     # per-token oracle on the unpadded operands
     from repro_torch.kernels.ref import moe_group_matmul_ref
@@ -1562,24 +1703,72 @@ def k9_case(label, tokens: int, E: int, top: int, kin: int, nout: int,
            "N": nout, "experts": E, "experts_used": n_used,
            "lhs_dtype": str(lhs_dtype).replace("torch.", ""),
            "t_pad": int(gp.lhs.shape[0]), "live_tiles": n_live,
+           "route": "decode" if decode else "tiled",
            "max_abs_err": err, "tol": tol, "oracle_err": err_ref,
+           "bitwise_vs_tiled": bitwise,
            "ms": cuda_ms(kern, reps),
+           "tiled_ms": cuda_ms(tiled, reps),
            "plain_ms": cuda_ms(plain, max(reps // 2, 1)),
            "bound_ms": b, "bound_by": by, "bytes": nbytes, "flops": flops,
            "library_ms": lib_ms,
            "max_group": int(sizes.max()), "empty_groups": E - n_used}
     del a_lib, w_lib, full, yk, yp, gp, w, xs
     torch.cuda.empty_cache()
-    ok = err <= tol and (err_ref is None or err_ref <= tol)
+    ok = err <= tol and (err_ref is None or err_ref <= tol) \
+        and bitwise is not False
     print(f"[chip_smoke]   K9 {label:<18} rows={rows} K={kin} N={nout} "
-          f"used={n_used}/{E} live_tiles={n_live} max_abs_err={err:.3g} "
-          f"tol={tol:.3g} oracle_err={err_ref} {'ok' if ok else 'FAIL'} "
-          f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"used={n_used}/{E} max_group={row['max_group']} live_tiles="
+          f"{n_live} route={row['route']} max_abs_err={err:.3g} "
+          f"tol={tol:.3g} oracle_err={err_ref} bitwise_vs_tiled={bitwise} "
+          f"{'ok' if ok else 'FAIL'} kernel_ms={row['ms']:.4f} tiled_ms="
+          f"{row['tiled_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
           f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f}", flush=True)
     if not ok:
         raise AssertionError(f"K9 disagrees on {label}: {err:.3g} / "
-                             f"{err_ref} > {tol:.3g}")
+                             f"{err_ref} > {tol:.3g}, bitwise {bitwise}")
     return row
+
+
+# rows per expert of the crossover sweep (uniform groups at granite's
+# gate/up shape, 32 experts)
+K9_SWEEP = (4, 8, 16, 24, 32, 48, 64, 96, 128)
+
+
+def k9_crossover(reps: int, gen) -> list:
+    """The tiled and the decode kernel at granite's gate/up shape (K 1024,
+    N 512, 32 experts, bf16 rows) with every group ``g`` rows, for ``g``
+    in ``K9_SWEEP``: where the decode kernel stops being the faster one
+    (``kernels.ops.DECODE_ROWS_PER_EXPERT`` is set from it). The two
+    must agree bitwise at every ``g``."""
+    import torch
+    from repro_torch.kernels import moe_group_matmul as MG
+    d, f, E = GRANITE["d"], GRANITE["f"], GRANITE["E"]
+    out = []
+    for g in K9_SWEEP:
+        sizes = torch.full((E,), g, dtype=torch.int64, device="cuda")
+        xs, w, gp = k9_operands(g * E, E, d, f, torch.bfloat16, gen, sizes)
+
+        def tiled():
+            return MG.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
+                                              n_rows=gp.n_rows,
+                                              tile_rows=gp.tile_rows)
+
+        def dec():
+            return MG.moe_group_matmul_decode(gp.lhs, w, gp.tile_expert,
+                                              gp.tile_rows, n_rows=gp.n_rows)
+        if not torch.equal(tiled(), dec()):
+            raise AssertionError(f"K9 decode kernel is not bitwise equal to "
+                                 f"the tiled kernel at {g} rows an expert")
+        row = {"rows_per_expert": g, "tiled_ms": cuda_ms(tiled, reps),
+               "decode_ms": cuda_ms(dec, reps)}
+        out.append(row)
+        del xs, w, gp
+    torch.cuda.empty_cache()
+    print("[chip_smoke]   K9 crossover (gate/up, 32 experts, rows an "
+          "expert: tiled / decode ms): " + ", ".join(
+              f"{r['rows_per_expert']}: {r['tiled_ms']:.4f} / "
+              f"{r['decode_ms']:.4f}" for r in out), flush=True)
+    return out
 
 
 def run_lm(quick: bool, reps: int, table: dict) -> dict:
@@ -1607,8 +1796,16 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
                                  nout, torch.bfloat16, reps, gen))
     cases.append(k9_case("decode/empty_groups", LM_BATCH, E, top, d, f,
                          torch.bfloat16, reps, gen, empty=E - 12))
+    # every token picks experts 0..7: eight groups of exactly 32 rows
+    full = torch.zeros(E, dtype=torch.int64, device="cuda")
+    full[:top] = LM_BATCH
+    cases.append(k9_case("decode/groups_of_32", LM_BATCH, E, top, d, f,
+                         torch.bfloat16, reps, gen, sizes=full))
+    cases.append(k9_case("decode/f32", LM_BATCH, E, top, d, f,
+                         torch.float32, reps, gen))
     cases.append(k9_case("reduced/f32", 64, 8, 4, 64, 64, torch.float32,
                          reps, gen))
+    crossover = k9_crossover(reps, gen)
 
     def layer(label, key):
         """One MoE layer's three launches: gate and up (one shape) and
@@ -1617,8 +1814,9 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
         return 2 * by[f"{label}/gate_up"][key] + by[f"{label}/down"][key]
 
     # the kernels line's K9 entry is one MoE layer of the served prefill
-    # (its bound from the summed bytes and flops), with the decode step's
-    # layer beside it
+    # (its bound from the summed bytes and flops, the tiled kernel), with
+    # the decode step's layer beside it (the decode kernel, and the tiled
+    # kernel on the same operands)
     table["K9"] = {"max_abs_err": max(c["max_abs_err"] for c in cases)}
     for pre, label in (("", "prefill"), ("decode_", "decode")):
         b, by = bound_ms(layer(label, "bytes"), layer(label, "flops"))
@@ -1629,6 +1827,7 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
                                                            "library_ms")})
         if not pre:
             table["K9"]["bound_by"] = by
+    table["K9"]["decode_tiled_ms"] = layer("decode", "tiled_ms")
     bounds = k9_bounds()
 
     n_layers = 2 if quick else 0
@@ -1645,10 +1844,13 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
         argv + ["--gen", str(LM_GEN), "--n-layers", str(n_layers)]))
     peak = torch.cuda.max_memory_allocated()
     cfg = res["cfg"]
-    want = 3 * cfg.n_layers * LM_GEN
-    if counts["K9"] != want:
-        raise AssertionError(f"serve --mode lm launched K9 {counts['K9']} "
-                             f"times, expected {want}")
+    # the prefill's MoE products take the tiled kernel, every decode
+    # step's the decode kernel
+    want = {"K9": 3 * cfg.n_layers, "K9d": 3 * cfg.n_layers * (LM_GEN - 1)}
+    for kern, n_want in want.items():
+        if counts[kern] != n_want:
+            raise AssertionError(f"serve --mode lm launched {kern} "
+                                 f"{counts[kern]} times, expected {n_want}")
     if res["n_params"] != count_params(cfg):
         raise AssertionError(f"{res['n_params']} parameters, accounting "
                              f"says {count_params(cfg)}")
@@ -1686,12 +1888,14 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
           "tok_per_s": res["tok_per_s"],
           "max_memory_allocated": peak, "launches": counts,
           "moe_layers": layers, "whole_model": whole, "profile": prof,
-          "k9_cases": cases, "k9_bounds": bounds}
+          "k9_cases": cases, "k9_crossover": crossover,
+          "k9_bounds": bounds}
     print(f"[chip_smoke] serve --mode lm {cfg.name}: {cfg.n_layers} layers,"
           f" {res['n_params']} parameters; prefill {lm['prefill_ms']:.1f} ms"
           f", decode {lm['decode_ms_per_step']:.2f} ms/step "
           f"({res['tok_per_s']:.1f} tok/s); max_memory_allocated "
-          f"{peak / 2 ** 30:.2f} GiB; K9 launches {counts['K9']}",
+          f"{peak / 2 ** 30:.2f} GiB; K9 launches {counts['K9']} tiled, "
+          f"{counts['K9d']} decode",
           flush=True)
     for route, o in whole.items():
         print(f"[chip_smoke]   whole-model prefill logits K9 vs {route}: "
@@ -1874,7 +2078,10 @@ def main(argv=None) -> int:
           flush=True)
     for label, lib, name in (("K6/K7", "tiled", "tiled_spmm_kernel"),
                              ("K5", "tiled", "tiled_spmv_kernel"),
-                             ("K4", "merge", "merge_spmv_kernel")):
+                             ("K4", "merge", "merge_spmv_kernel"),
+                             ("K3", "sellcs", "sellcs_slots_t_kernel"),
+                             ("K9", "moe", "moe_group_matmul_kernel"),
+                             ("K9 decode", "moe", "decode_kernel")):
         report = ptxas_lines(_lib.BUILD_LOGS.get(lib, ""), name)
         for line in report or ["the library was built before this run: "
                                "no report"]:
@@ -1954,7 +2161,8 @@ def main(argv=None) -> int:
                 "K4": counts_b["K4"], "carry": counts_b["carry"],
                 **blocked_row["launches"],
                 "K8": mesh_row["launches"]["K8"],
-                "K9": lm_row["launches"]["K9"]}
+                "K9": lm_row["launches"]["K9"] + lm_row["launches"]["K9d"]}
+    table["K9"]["decode_launches"] = lm_row["launches"]["K9d"]
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "carry", "K5", "K6", "K7", "K8",
                 "K9"):
@@ -1968,7 +2176,8 @@ def main(argv=None) -> int:
                  "library_ms": row["library_ms"]}
         for extra in ("tile_gb_per_s", "per_shard_ms", "decode_ms",
                       "decode_plain_ms", "decode_bound_ms",
-                      "decode_library_ms"):
+                      "decode_library_ms", "decode_tiled_ms",
+                      "decode_launches"):
             if extra in row:
                 entry[extra] = row[extra]
         kernels.append(entry)

@@ -20,15 +20,16 @@
 //     of f32 FMA at 67 TFLOP/s is 1.54 ms against 0.19 ms of bytes. A bf16
 //     or TF32 tensor-core product would round the f32 weights that the
 //     reference multiplies exactly, so the f32 FMA rate is the honest peak.
-// Design (simple and right first):
+// Two kernels compute it; kernels.ops.moe_group_matmul picks one from the
+// shapes (rows against experts), so the host never syncs:
+//
+// The tiled kernel (prefill: full tiles):
 //   * One 256-thread block per (128-row m-tile, 128-column n-tile), on a
 //     1-D grid (up to 2^31 - 1 blocks, so T_pad has no practical cap) with
 //     the n-tiles of one m-tile adjacent. The m-tiles past the real length
-//     then start last: at decode (136 blocks on 132 SMs) the blocks that
-//     share an SM are ones that exit at once (the m-tiles on grid.x and
-//     the n-tiles on grid.y slowed a decode layer; PERF.md, PR 16). The
-//     block reads its own tile_expert entry (no scalar prefetch) and
-//     clamps it to [0, E), as the reference's gathers clamp.
+//     then start last. The block reads its own tile_expert entry (no
+//     scalar prefetch) and clamps it to [0, E), as the reference's gathers
+//     clamp.
 //   * The K loop goes in slabs of 32: the lhs slab (converted to f32) is
 //     stored k-major in shared memory, the rhs slab row-major, both with
 //     16-byte global loads; the next slab's loads are issued into
@@ -38,12 +39,25 @@
 //     ty*4 and 64 + ty*4, columns tx*4 and 64 + tx*4, four each), read
 //     from shared memory as float4: 16 FMAs per 16-byte shared load.
 //   * A tile that starts at or past the real padded length (*n_rows, a
-//     device scalar, so the host never syncs) writes zeros and returns:
-//     the wrapper pads for the worst case (T + E * 128 rows).
+//     device scalar) writes zeros and returns: the wrapper pads for the
+//     worst case (T + E * 128 rows). (Given tile_rows, the wrapper zeroes
+//     the rows past a tile's real count afterwards; prefill passes none.
+//     A per-row test in this kernel's epilogue made it spill more and run
+//     a prefill layer ~5 % slower: PERF.md, PR 18.)
 //   * The f32 output is written once, as float4.
-// Not yet: wgmma/TMA, a bf16/TF32 product (it changes the numbers), and
-// skipping the zero rows inside a group's last tile (decode pays 128 rows
-// per used expert for ~8 real ones). Later, measured PRs; see PERF.md.
+//
+// The decode kernel (a decode step: 32 tokens x top-8 = 256 rows over 32
+// experts, ~8 real rows a tile and never more than 32): the tiled kernel
+// multiplies all 128 rows of every used expert's tile, 16x the real work,
+// and its 136 blocks of 16.8 M FMAs each run about one an SM; the step is
+// bound by the weight bytes instead. So this kernel (further down) gives
+// each (tile, 64-column slab) a block that streams the expert's weight
+// slab once through a cp.async ring and multiplies only the tile's real
+// rows (tile_rows), with the same sequential fmaf chain over k as the
+// tiled kernel: its outputs equal the tiled kernel's bitwise. A tile of
+// more than 32 real rows takes a pass per 32 rows, each streaming the
+// slab again, which is why prefill keeps the tiled kernel.
+// Not yet: wgmma/TMA and a bf16/TF32 product (it changes the numbers).
 
 #include <cuda_runtime.h>
 
@@ -244,6 +258,187 @@ void launch(const void* lhs, const float* rhs, const int* tile_expert,
       n_rows, out, K, N, E);
 }
 
+// ---------------------------------------------------------------------
+// The decode kernel: the same function when a tile holds few real rows.
+//
+// One block per (m-tile, 64-column slab); it streams the tile's expert's
+// weight slab [K, 64] once per 32 real rows (once at decode) through a
+// cp.async ring of kDStages stages of kDK k-rows (16-byte copies, 256
+// contiguous bytes per k-row; the ring keeps ~7 stages, 56 KB of weights
+// and the matching lhs rows, in flight per block without holding
+// registers; two blocks fit an SM). Thread t owns the four columns
+// 4 * (t % 16) .. + 3 and the rows t / 16 + 8 * i, i < 4, of the pass: a
+// real row is a register tile
+// of 4 sums, a row past the tile's real count is never multiplied. Each
+// sum is the same sequential fmaf chain over k = 0 .. K - 1 from zero as
+// the tiled kernel's (lhs taken to f32 exactly), so the two kernels'
+// outputs are bitwise equal. Rows past the count, and tiles at or past
+// n_rows, are written as zeros.
+constexpr int kDN = 64;            // columns per block
+constexpr int kDK = 32;            // k-rows per stage
+constexpr int kDStages = 8;         // ~7 stages (56 KB of weights) in flight
+constexpr int kDThreads = 128;
+constexpr int kDRows = 32;         // rows per pass: 8 row slots x 4
+constexpr int kDPitch = kDK * 4 + 16;   // lhs stage row pitch, bytes
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int kDStageW = kDK * kDN * 4;          // weight bytes a stage
+constexpr int kDStageA = kDRows * kDPitch;       // lhs bytes a stage
+constexpr int kDSmem = kDStages * (kDStageW + kDStageA);
+
+// four consecutive k of one lhs row from a stage, as f32
+template <int LT> struct ARow;
+template <> struct ARow<kF32> {
+  using T = float;
+  static constexpr int kBytes = 4;
+  __device__ __forceinline__ static float4 get(const char* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+};
+template <> struct ARow<kBF16> {
+  using T = unsigned short;
+  static constexpr int kBytes = 2;
+  __device__ __forceinline__ static float4 get(const char* p) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    return make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y),
+                       bf16_hi(v.y));
+  }
+};
+
+template <int LT>
+__global__ void __launch_bounds__(kDThreads)
+moe_group_matmul_decode_kernel(const typename ARow<LT>::T* __restrict__ lhs,
+                               const float* __restrict__ rhs,
+                               const int* __restrict__ tile_expert,
+                               const int* __restrict__ tile_rows,
+                               const int* __restrict__ n_rows,
+                               float* __restrict__ out, int K, int N, int E) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr int kAB = ARow<LT>::kBytes;
+  constexpr int kAChunks = kDK * kAB / 16;        // 16-byte pieces a row
+  const int t = threadIdx.x;
+  const int cq = t & 15, rs = t >> 4;             // column quad, row slot
+  const int n_slabs = N / kDN;
+  const int m_tile = blockIdx.x / n_slabs;
+  const int col0 = (blockIdx.x % n_slabs) * kDN;
+  const long long row0 = (long long)m_tile * kBM;
+  float* o = out + row0 * N + col0 + 4 * cq;
+
+  int live = __ldg(tile_rows + m_tile);
+  live = live < 0 ? 0 : (live > kBM ? kBM : live);
+  if (n_rows != nullptr && row0 >= (long long)__ldg(n_rows)) live = 0;
+  int e = __ldg(tile_expert + m_tile);
+  e = e < 0 ? 0 : (e >= E ? E - 1 : e);
+  const float* w = rhs + (long long)e * K * N + col0;
+  const typename ARow<LT>::T* a = lhs + row0 * K;
+  const int nk = K / kDK;
+
+  for (int p0 = 0; p0 < live; p0 += kDRows) {
+    const int rows = min(kDRows, live - p0);
+    auto load = [&](int kt) {
+      char* st = smem + (kt % kDStages) * (kDStageW + kDStageA);
+      const int k0 = kt * kDK;
+#pragma unroll
+      for (int i = 0; i < kDStageW / 16 / kDThreads; ++i) {
+        const int c = t + i * kDThreads;          // 16 pieces a k-row
+        cp_async16(st + c * 16, w + (long long)(k0 + (c >> 4)) * N
+                                    + (c & 15) * 4);
+      }
+      for (int c = t; c < rows * kAChunks; c += kDThreads) {
+        const int r = c / kAChunks, q = c % kAChunks;
+        cp_async16(st + kDStageW + r * kDPitch + q * 16,
+                   a + (long long)(p0 + r) * K + k0 + q * (16 / kAB));
+      }
+    };
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < kDStages - 1; ++kt) {
+      if (kt < nk) load(kt);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kDStages - 2>();
+      __syncthreads();                 // stage kt landed; kt - 1 is free
+      if (kt + kDStages - 1 < nk) load(kt + kDStages - 1);
+      cp_async_commit();
+      const char* st = smem + (kt % kDStages) * (kDStageW + kDStageA);
+      const float* ws = reinterpret_cast<const float*>(st) + 4 * cq;
+      const char* as = st + kDStageW;
+#pragma unroll
+      for (int kk = 0; kk < kDK; kk += 4) {
+        float4 wv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          wv[u] = *reinterpret_cast<const float4*>(ws + (kk + u) * kDN);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rs + 8 * i;
+          if (r >= rows) continue;
+          const float4 av = ARow<LT>::get(as + r * kDPitch + kk * kAB);
+          const float ak[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {   // k ascending, as the tiled kernel
+            acc[i][0] = fmaf(ak[u], wv[u].x, acc[i][0]);
+            acc[i][1] = fmaf(ak[u], wv[u].y, acc[i][1]);
+            acc[i][2] = fmaf(ak[u], wv[u].z, acc[i][2]);
+            acc[i][3] = fmaf(ak[u], wv[u].w, acc[i][3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();                   // the ring is free for the next pass
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rs + 8 * i;
+      if (r < rows)
+        put4(o + (long long)(p0 + r) * N, acc[i][0], acc[i][1], acc[i][2],
+             acc[i][3]);
+    }
+  }
+  for (int r = live + rs; r < kBM; r += 8)
+    put4(o + (long long)r * N, 0.f, 0.f, 0.f, 0.f);
+}
+
+template <int LT>
+int launch_decode(const void* lhs, const float* rhs, const int* tile_expert,
+                  const int* tile_rows, const int* n_rows, float* out,
+                  int t_pad, int K, int N, int E, cudaStream_t s) {
+  // once per device: the shared-memory limit past 48 KB is opted into
+  constexpr int kMaxDevices = 64;
+  static bool opted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !opted[dev]) {
+    err = cudaFuncSetAttribute(moe_group_matmul_decode_kernel<LT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) opted[dev] = true;
+  }
+  const dim3 grid((unsigned)((long long)(t_pad / kBM) * (N / kDN)));
+  moe_group_matmul_decode_kernel<LT><<<grid, kDThreads, kDSmem, s>>>(
+      static_cast<const typename ARow<LT>::T*>(lhs), rhs, tile_expert,
+      tile_rows, n_rows, out, K, N, E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -269,6 +464,27 @@ int moe_group_matmul_launch(const void* lhs, int lhs_dtype, const float* rhs,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// K9's decode kernel: as moe_group_matmul_launch, with tile_rows required.
+int moe_group_matmul_decode_launch(const void* lhs, int lhs_dtype,
+                                   const float* rhs, const int* tile_expert,
+                                   const int* n_rows, const int* tile_rows,
+                                   float* out, int t_pad, int k, int n,
+                                   int e, void* stream) {
+  if (t_pad % kBM || k % kDK || n % kDN || k <= 0 || e <= 0 ||
+      tile_rows == nullptr ||
+      (long long)(t_pad / kBM) * (n / kDN) > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  if (t_pad == 0 || n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (lhs_dtype == kF32)
+    return launch_decode<kF32>(lhs, rhs, tile_expert, tile_rows, n_rows,
+                               out, t_pad, k, n, e, s);
+  if (lhs_dtype == kBF16)
+    return launch_decode<kBF16>(lhs, rhs, tile_expert, tile_rows, n_rows,
+                                out, t_pad, k, n, e, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* repro_error_string(int code) {

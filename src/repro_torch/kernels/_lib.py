@@ -31,7 +31,7 @@ SOURCES = {
     "sellcs": "sellcs_spmm.cu",      # K1, K8 and K3
     "merge": "merge_spmm.cu",        # K2, K4 and the carry step
     "tiled": "tiled_spmm.cu",        # K5, K6 and K7
-    "moe": "moe_group_matmul.cu",    # K9
+    "moe": "moe_group_matmul.cu",    # K9 (tiled and decode)
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,7 +47,7 @@ SIGNATURES = {
     "sellcs_slots_fused_launch": ("sellcs", [_P, _P, _P, _P, _P, _P, _I,
                                              _I, _I, _P]),
     "sellcs_slots_t_launch": ("sellcs", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                         _I, _P]),
+                                         _I, _I, _I, _P]),
     "merge_spmm_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,
                                              _P, _I, _I, _I, _P]),
     "merge_spmv_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -59,6 +59,8 @@ SIGNATURES = {
                                     _I, _P]),
     "moe_group_matmul_launch": ("moe", [_P, _I, _P, _P, _P, _P, _I, _I,
                                         _I, _I, _P]),
+    "moe_group_matmul_decode_launch": ("moe", [_P, _I, _P, _P, _P, _P, _P,
+                                               _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -180,6 +182,19 @@ def sm_count(device: torch.device) -> int:
         _SM_COUNT[idx] = \
             torch.cuda.get_device_properties(idx).multi_processor_count
     return _SM_COUNT[idx]
+
+
+_L2_BYTES: Dict[int, int] = {}
+
+
+def l2_bytes(device: torch.device) -> int:
+    """The L2 cache size of ``device`` (a CUDA device), in bytes."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _L2_BYTES:
+        _L2_BYTES[idx] = \
+            torch.cuda.get_device_properties(idx).L2_cache_size
+    return _L2_BYTES[idx]
 
 
 def stream_of(t: torch.Tensor) -> int:

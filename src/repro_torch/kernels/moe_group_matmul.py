@@ -18,10 +18,20 @@ the design). The wrapper runs the plain PyTorch version
 tensor launches the kernel or raises. Launches are counted in
 ``moe_group_matmul_padded.launches``.
 
+:func:`moe_group_matmul_decode` computes the same function with a second
+kernel for tiles that hold few real rows (a decode step): it multiplies
+only each tile's real rows, and its sums are bitwise those of the tiled
+kernel. Its launches are counted in
+``moe_group_matmul_decode.launches``; ``kernels.ops.moe_group_matmul``
+picks it from the shapes.
+
 ``n_rows`` (optional, an int32 tensor of one element on lhs's device) is
 the real padded length, ``padded_ptr[E]`` in ``kernels.ops``: m-tiles
 that start at or past it are zero in the output and cost the kernel no
-product. It stays on the device, so no host sync is needed.
+product. ``tile_rows`` (int32 [T_pad / 128] on lhs's device; optional
+for the tiled kernel, required for the decode kernel) is the number of
+real rows of each m-tile (``kernels.ops.moe_group_pad``): output rows
+past it are zero. Both stay on the device, so no host sync is needed.
 """
 from __future__ import annotations
 
@@ -65,14 +75,24 @@ def _check_shapes(lhs: torch.Tensor, rhs: torch.Tensor,
     return T_pad, K, E, N
 
 
+def _zero_dead_rows(out: torch.Tensor, tile_rows: torch.Tensor
+                    ) -> torch.Tensor:
+    """``out`` [nm, 128, N] with the rows past each tile's real count
+    zero."""
+    keep = torch.arange(M_TILE, device=out.device)[None, :] \
+        < tile_rows.to(device=out.device, dtype=torch.int64)[:, None]
+    return torch.where(keep[:, :, None], out, 0.0)
+
+
 def moe_group_matmul_padded_plain(lhs: torch.Tensor, rhs: torch.Tensor,
                                   tile_expert: torch.Tensor, *,
-                                  n_rows: Optional[torch.Tensor] = None
+                                  n_rows: Optional[torch.Tensor] = None,
+                                  tile_rows: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """The function K9 computes, in plain PyTorch: each m-tile's
     (128, K) @ (K, N) product in float32 with the weights of its expert
     (ids clamped to [0, E), as the reference's gathers clamp), tiles at or
-    past ``n_rows`` zero -> f32 [T_pad, N]."""
+    past ``n_rows`` and rows past ``tile_rows`` zero -> f32 [T_pad, N]."""
     T_pad, K, E, N = _check_shapes(lhs, rhs, tile_expert)
     nm = T_pad // M_TILE
     te = tile_expert.long().clamp(0, E - 1)
@@ -86,27 +106,21 @@ def moe_group_matmul_padded_plain(lhs: torch.Tensor, rhs: torch.Tensor,
         live = torch.arange(nm, device=lhs.device) * M_TILE \
             < n_rows.reshape(()).to(lhs.device)
         out = torch.where(live[:, None, None], out, 0.0)
+    if tile_rows is not None:
+        if tile_rows.shape != (nm,):
+            raise ValueError(f"tile_rows must have {nm} entries, got "
+                             f"{tuple(tile_rows.shape)}")
+        out = _zero_dead_rows(out, tile_rows)
     return out.view(T_pad, N)
 
 
-def moe_group_matmul_padded(lhs: torch.Tensor, rhs: torch.Tensor,
-                            tile_expert: torch.Tensor, *,
-                            out_dtype=torch.float32,
-                            n_rows: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
-    """K9: the grouped GEMM over expert-sorted, group-padded rows.
-    lhs f32/bf16 [T_pad, K], rhs f32/bf16/f16 [E, K, N], tile_expert
-    int32 [T_pad / 128] (, n_rows int32 [1]) -> out_dtype [T_pad, N]
-    (the kernel writes float32; another float dtype is a cast of it)."""
-    if not out_dtype.is_floating_point:
-        raise TypeError(f"out_dtype must be a float dtype, got {out_dtype}")
-    if rhs.dtype not in _RHS_WIDENED:
-        raise TypeError(f"rhs must be one of {_RHS_WIDENED}, got "
-                        f"{rhs.dtype}")
-    if lhs.device.type == "cpu":
-        out = moe_group_matmul_padded_plain(lhs, rhs, tile_expert,
-                                            n_rows=n_rows)
-        return out.to(out_dtype)
+def _card_operands(lhs: torch.Tensor, rhs: torch.Tensor,
+                   tile_expert: torch.Tensor, n_rows: Optional[torch.Tensor],
+                   tile_rows: Optional[torch.Tensor]):
+    """Validate K9's operands on the card -> ``(head, tail, out, rhs)``: the
+    C entry points' arguments before and after the tile counts, the f32
+    [T_pad, N] output and the f32 weights they point to (held by the
+    caller until the launch)."""
     T_pad, K, E, N = _check_shapes(lhs, rhs, tile_expert)
     rhs = rhs.to(torch.float32)                  # exact for bf16 and f16
     lhs_code = _LHS_CODE.get(lhs.dtype)
@@ -128,14 +142,82 @@ def moe_group_matmul_padded(lhs: torch.Tensor, rhs: torch.Tensor,
         _lib.require(n_rows, "n_rows", torch.int32, 1)
         if n_rows.numel() != 1 or n_rows.device != lhs.device:
             raise ValueError("n_rows must be one int32 on lhs's device")
+    if tile_rows is not None:
+        _lib.require(tile_rows, "tile_rows", torch.int32, 1)
+        if tile_rows.shape != tile_expert.shape \
+                or tile_rows.device != lhs.device:
+            raise ValueError(f"tile_rows must be int32 [{T_pad // M_TILE}]"
+                             " on lhs's device")
     out = torch.empty((T_pad, N), dtype=torch.float32, device=lhs.device)
+    head = (lhs.data_ptr(), lhs_code, rhs.data_ptr(), tile_expert.data_ptr(),
+            0 if n_rows is None else n_rows.data_ptr())
+    tail = (out.data_ptr(), T_pad, K, N, E, _lib.stream_of(lhs))
+    return head, tail, out, rhs
+
+
+def _check_dtypes(rhs: torch.Tensor, out_dtype) -> None:
+    if not out_dtype.is_floating_point:
+        raise TypeError(f"out_dtype must be a float dtype, got {out_dtype}")
+    if rhs.dtype not in _RHS_WIDENED:
+        raise TypeError(f"rhs must be one of {_RHS_WIDENED}, got "
+                        f"{rhs.dtype}")
+
+
+def moe_group_matmul_padded(lhs: torch.Tensor, rhs: torch.Tensor,
+                            tile_expert: torch.Tensor, *,
+                            out_dtype=torch.float32,
+                            n_rows: Optional[torch.Tensor] = None,
+                            tile_rows: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """K9: the grouped GEMM over expert-sorted, group-padded rows.
+    lhs f32/bf16 [T_pad, K], rhs f32/bf16/f16 [E, K, N], tile_expert
+    int32 [T_pad / 128] (, n_rows int32 [1], tile_rows int32
+    [T_pad / 128]) -> out_dtype [T_pad, N] (the kernel writes float32;
+    another float dtype is a cast of it)."""
+    _check_dtypes(rhs, out_dtype)
+    if lhs.device.type == "cpu":
+        out = moe_group_matmul_padded_plain(lhs, rhs, tile_expert,
+                                            n_rows=n_rows,
+                                            tile_rows=tile_rows)
+        return out.to(out_dtype)
+    head, tail, out, rhs = _card_operands(lhs, rhs, tile_expert, n_rows,
+                                          tile_rows)
     fn = "moe_group_matmul_launch"
-    _lib.check(_lib.entry(fn)(
-        lhs.data_ptr(), lhs_code, rhs.data_ptr(), tile_expert.data_ptr(),
-        0 if n_rows is None else n_rows.data_ptr(), out.data_ptr(), T_pad,
-        K, N, E, _lib.stream_of(lhs)), fn)
+    _lib.check(_lib.entry(fn)(*head, *tail), fn)
     moe_group_matmul_padded.launches += 1
+    if tile_rows is not None:        # not on the prefill path: no cost there
+        out = _zero_dead_rows(out.view(-1, M_TILE, out.shape[1]),
+                              tile_rows).view(out.shape)
     return out.to(out_dtype)
 
 
 moe_group_matmul_padded.launches = 0
+
+
+def moe_group_matmul_decode(lhs: torch.Tensor, rhs: torch.Tensor,
+                            tile_expert: torch.Tensor,
+                            tile_rows: torch.Tensor, *,
+                            out_dtype=torch.float32,
+                            n_rows: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """K9 for tiles with few real rows: the function of
+    :func:`moe_group_matmul_padded` given ``tile_rows``, through the decode
+    kernel, which multiplies only each tile's real rows (bitwise the
+    tiled kernel's sums on them). The plain version on CPU tensors."""
+    _check_dtypes(rhs, out_dtype)
+    if tile_rows is None:
+        raise ValueError("the decode kernel needs the tiles' row counts")
+    if lhs.device.type == "cpu":
+        out = moe_group_matmul_padded_plain(lhs, rhs, tile_expert,
+                                            n_rows=n_rows,
+                                            tile_rows=tile_rows)
+        return out.to(out_dtype)
+    head, tail, out, rhs = _card_operands(lhs, rhs, tile_expert, n_rows,
+                                          tile_rows)
+    fn = "moe_group_matmul_decode_launch"
+    _lib.check(_lib.entry(fn)(*head, tile_rows.data_ptr(), *tail), fn)
+    moe_group_matmul_decode.launches += 1
+    return out.to(out_dtype)
+
+
+moe_group_matmul_decode.launches = 0

@@ -18,6 +18,10 @@ from . import moe_group_matmul as _moe
 from .tiling import TiledSparse
 
 M_TILE = _moe.M_TILE
+# ``moe_group_matmul`` takes K9's decode kernel when the rows average at
+# most this many per expert (from the shapes alone, no host sync); see
+# PERF.md for the measured crossover against the tiled kernel
+DECODE_ROWS_PER_EXPERT = 48
 
 
 def bsr_spmv(ts: TiledSparse, x: torch.Tensor, *,
@@ -61,6 +65,7 @@ class GroupPadding(NamedTuple):
     tile_expert: torch.Tensor  # int32 [T_pad / M_TILE], clipped to E - 1
     pos: torch.Tensor          # int64 [T], row of token t in lhs
     n_rows: torch.Tensor       # int32 [1], padded_ptr[E]: the real length
+    tile_rows: torch.Tensor    # int32 [T_pad / M_TILE], real rows a tile
 
 
 def moe_group_pad(tokens: torch.Tensor, group_sizes: torch.Tensor,
@@ -89,8 +94,20 @@ def moe_group_pad(tokens: torch.Tensor, group_sizes: torch.Tensor,
     tile_idx = torch.arange(T_pad // M_TILE, dtype=torch.int64, device=dev)
     tile_expert = torch.searchsorted(padded_ptr[1:], tile_idx * M_TILE,
                                      right=True).clamp(max=E - 1)
+    # the real rows of each tile: the tokens whose row falls in it (four
+    # small launches; a decode step makes three paddings a layer)
+    tile_rows = torch.zeros(T_pad // M_TILE, dtype=torch.int32,
+                            device=dev).index_add_(
+        0, pos // M_TILE, torch.ones(T, dtype=torch.int32, device=dev))
     return GroupPadding(lhs, tile_expert.to(torch.int32), pos,
-                        padded_ptr[E:].to(torch.int32))
+                        padded_ptr[E:].to(torch.int32), tile_rows)
+
+
+def takes_decode_kernel(rows: int, num_experts: int) -> bool:
+    """Whether ``moe_group_matmul`` routes ``rows`` expert-sorted rows
+    over ``num_experts`` groups to K9's decode kernel: when they average
+    at most ``DECODE_ROWS_PER_EXPERT`` rows a group (static shapes)."""
+    return rows <= DECODE_ROWS_PER_EXPERT * num_experts
 
 
 def moe_group_matmul(tokens: torch.Tensor, weights: torch.Tensor,
@@ -102,7 +119,10 @@ def moe_group_matmul(tokens: torch.Tensor, weights: torch.Tensor,
 
     Pads the groups to ``M_TILE`` (:func:`moe_group_pad`) and K/N to
     multiples of 128 (zero rows and columns compute zeros); K9 skips the
-    tiles past the real padded length."""
+    tiles past the real padded length. Few rows per expert
+    (:func:`takes_decode_kernel`, a decode step) take K9's decode kernel,
+    which multiplies only each tile's real rows; the others the tiled
+    kernel."""
     T, K = tokens.shape
     E, K2, N = weights.shape
     if K2 != K or group_sizes.shape != (E,):
@@ -116,7 +136,15 @@ def moe_group_matmul(tokens: torch.Tensor, weights: torch.Tensor,
                                           (0, Np - N, 0, Kp - K))
     weights = weights.contiguous()
     g = moe_group_pad(tokens, group_sizes, E, Kp)
-    fn = _moe.moe_group_matmul_padded_plain if plain \
-        else _moe.moe_group_matmul_padded
-    out_pad = fn(g.lhs, weights, g.tile_expert, n_rows=g.n_rows)
+    if plain:
+        out_pad = _moe.moe_group_matmul_padded_plain(
+            g.lhs, weights, g.tile_expert, n_rows=g.n_rows,
+            tile_rows=g.tile_rows)
+    elif takes_decode_kernel(T, E):
+        out_pad = _moe.moe_group_matmul_decode(
+            g.lhs, weights, g.tile_expert, g.tile_rows, n_rows=g.n_rows)
+    else:
+        out_pad = _moe.moe_group_matmul_padded(g.lhs, weights,
+                                               g.tile_expert,
+                                               n_rows=g.n_rows)
     return out_pad[g.pos, :N]

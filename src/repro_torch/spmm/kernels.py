@@ -207,6 +207,29 @@ def sellcs_slots_t_plain(data: torch.Tensor, cols: torch.Tensor,
     return y
 
 
+def column_bands(n_out: int, k: int, l2_bytes: int) -> int:
+    """How many passes K3 takes over Y's columns: one while the f32
+    ``[n_out, k]`` Y fits two thirds of L2 (the rest holds the stream as
+    it passes), else as many bands as keep each one that small, so the
+    scattered adds of a pass hit L2 instead of HBM."""
+    budget = max(2 * l2_bytes // 3, 1)
+    y_bytes = 4 * n_out * k
+    return max(1, min(-(-y_bytes // budget), n_out))
+
+
+def _sellcs_t_launch(data, cols, slice_of, slice_ptr, row_len, x_slots,
+                     y, chunk: int, bands: int) -> None:
+    """Launch K3 into the zeroed ``y`` in ``bands`` column passes
+    (uncounted: :func:`sellcs_slots_t` counts its calls)."""
+    n_out, k = int(y.shape[0]), int(y.shape[1])
+    fn = "sellcs_slots_t_launch"
+    _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(),
+                              slice_of.data_ptr(), slice_ptr.data_ptr(),
+                              row_len.data_ptr(), x_slots.data_ptr(),
+                              y.data_ptr(), int(data.shape[0]), chunk, k,
+                              n_out, bands, _lib.stream_of(x_slots)), fn)
+
+
 def sellcs_slots_t(data: torch.Tensor, cols: torch.Tensor,
                    slice_of: torch.Tensor, slice_ptr: torch.Tensor,
                    row_len: torch.Tensor, x_slots: torch.Tensor, *,
@@ -214,8 +237,11 @@ def sellcs_slots_t(data: torch.Tensor, cols: torch.Tensor,
     """K3: ``Y[cols[w, l], :] += data[w, l] * x_slots[slice_of[w]*C + l, :]``
     over the stored entries -> f32[n_out, k] in natural column order.
     ``x_slots`` is X permuted into slot space
-    (:func:`repro_torch.spmm.reference.sellcs_slot_x`). The adds are
-    atomic, so their order (and the last bits) vary from run to run."""
+    (:func:`repro_torch.spmm.reference.sellcs_slot_x`); ``slice_ptr`` is
+    each slice's depth base and the stream its real width-row prefix
+    (slice ids nondecreasing). The adds are atomic, so their order (and
+    the last bits) vary from run to run. A Y larger than two thirds of L2
+    is updated in :func:`column_bands` passes."""
     if x_slots.device.type == "cpu":
         return sellcs_slots_t_plain(data, cols, slice_of, slice_ptr,
                                     row_len, x_slots, n_out=n_out,
@@ -237,12 +263,9 @@ def sellcs_slots_t(data: torch.Tensor, cols: torch.Tensor,
                          "[num_slices * chunk]")
     k = int(x_slots.shape[1])
     y = torch.zeros((n_out, k), dtype=torch.float32, device=x_slots.device)
-    fn = "sellcs_slots_t_launch"
-    _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(),
-                              slice_of.data_ptr(), slice_ptr.data_ptr(),
-                              row_len.data_ptr(), x_slots.data_ptr(),
-                              y.data_ptr(), W, chunk, k,
-                              _lib.stream_of(x_slots)), fn)
+    bands = column_bands(n_out, k, _lib.l2_bytes(x_slots.device))
+    _sellcs_t_launch(data, cols, slice_of, slice_ptr, row_len, x_slots, y,
+                     chunk, bands)
     sellcs_slots_t.launches += 1
     return y
 

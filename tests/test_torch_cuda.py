@@ -296,14 +296,24 @@ def _k9_operands(cuda, case):
     return tokens, w, sizes
 
 
+def _k9_launches():
+    return (TK9.moe_group_matmul_padded.launches,
+            TK9.moe_group_matmul_decode.launches)
+
+
 @pytest.mark.parametrize("case", ["decode", "empty_groups", "f32_reduced"])
 def test_grouped_gemm_kernel_matches_plain(cuda, case):
+    """``ops.moe_group_matmul`` launches one K9 kernel, the one its route
+    takes from the shapes (the decode kernel for few rows an expert),
+    against the plain version; ``plain=True`` launches nothing."""
     tokens, w, sizes = _k9_operands(cuda, case)
-    before = TK9.moe_group_matmul_padded.launches
+    decode = TOPS.takes_decode_kernel(tokens.shape[0], w.shape[0])
+    tiled0, dec0 = _k9_launches()
     got = TOPS.moe_group_matmul(tokens, w, sizes)
-    assert TK9.moe_group_matmul_padded.launches == before + 1
+    want_counts = (tiled0 + (not decode), dec0 + decode)
+    assert _k9_launches() == want_counts
     want = TOPS.moe_group_matmul(tokens, w, sizes, plain=True)
-    assert TK9.moe_group_matmul_padded.launches == before + 1
+    assert _k9_launches() == want_counts
     assert got.dtype == torch.float32 and got.shape == want.shape
     _close(got, want)
     # the padded layer: tiles past the real length are zero
@@ -668,12 +678,167 @@ def test_moe_layer_kernel_route_matches_plain(cuda):
     gen = torch.Generator(device=cuda).manual_seed(5)
     p = TMOE.moe_init(gen, cfg)
     x = torch.randn((2, 64, 1024), generator=gen, device=cuda)
-    before = TK9.moe_group_matmul_padded.launches
+    before = sum(_k9_launches())
     out, aux = TMOE.moe_apply(p, cfg, x)
-    assert TK9.moe_group_matmul_padded.launches == before + 3
+    assert sum(_k9_launches()) == before + 3
     plain, aux_p = TMOE.moe_apply(p, cfg._replace(plain=True), x)
     ragged, _ = TMOE.moe_apply(p, cfg._replace(use_kernel=False), x)
-    assert TK9.moe_group_matmul_padded.launches == before + 3
+    assert sum(_k9_launches()) == before + 3
     _close(out, plain)
     _close(out, ragged)
     assert float(aux) == float(aux_p)
+
+
+# --------------------------------------------------------------------------
+# K3 redesigned (warp per lane group, x in registers, column bands)
+# --------------------------------------------------------------------------
+def _k3_close(sc_arrays, xs, n_out, chunk):
+    got = TK.sellcs_slots_t(*sc_arrays, xs, n_out=n_out, chunk=chunk)
+    assert got.shape == (n_out, xs.shape[1]) and got.dtype == torch.float32
+    _close(got, TK.sellcs_slots_t_plain(*sc_arrays, xs, n_out=n_out,
+                                        chunk=chunk))
+
+
+def _deep_coo(cuda):
+    """Row 5 holds 3,000 entries (a slice ~188 of K3's 16-deep chunks
+    deep), sparse rows around it, rows 128..383 empty (two empty slices
+    at C = 128)."""
+    r = np.random.default_rng(5)
+    m, n = 1024, 4000
+    rows = np.concatenate([np.full(3000, 5), r.integers(0, 128, 2000),
+                           r.integers(384, m, 6000)])
+    cols = np.concatenate([r.permutation(n)[:3000],
+                           r.integers(0, n, 8000)])
+    keys = np.unique(rows * n + cols)
+    return TM.as_coo(((keys // n).astype(np.int32),
+                      (keys % n).astype(np.int32),
+                      r.standard_normal(keys.size).astype(np.float32),
+                      (m, n)), device=cuda)
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 64])
+@pytest.mark.parametrize("case", ["deep", "mawi_like", "chunk_16"])
+def test_k3_matches_plain_at_every_width(cuda, case, k):
+    """K3 against its plain version: a slice thousands of width-rows deep
+    with empty slices, the suite's mawi_like, and a slice height of 16
+    (a partial lane group)."""
+    if case == "deep":
+        coo, c = _deep_coo(cuda), 128
+    else:
+        coo, c = _matrix(cuda, "mawi_like"), (16 if case == "chunk_16"
+                                             else 128)
+    sc = coo_to_sellcs(coo, c=c)
+    if case == "deep":
+        widths = sc.slice_ptr[1:] - sc.slice_ptr[:-1]
+        assert int(widths.max()) >= 3000 and int((widths == 0).sum()) >= 2
+    m, n = coo.shape
+    xs = sellcs_slot_x(sc.row_perm, torch.randn((m, k), device=cuda), m)
+    _k3_close((sc.data, sc.cols, sc.slice_of, sc.slice_ptr, sc.row_len),
+              xs, n, sc.chunk)
+
+
+@pytest.mark.parametrize("label", ["row", "merge"])
+def test_k3_matches_plain_on_mesh_shards(cuda, label):
+    """K3 on the shard arrays of the mesh partitioners (a merge span
+    starts and ends mid-slice: a negative depth base), and the mesh
+    transpose against the oracle."""
+    from repro_torch.launch.mesh import make_spmm_mesh
+    from repro_torch.spmm import distributed as TD
+    coo = _matrix(cuda, "hhh_like", 0.05)
+    sc = coo_to_sellcs(coo)
+    part = (TD.partition_sellcs_rows(sc, 4) if label == "row"
+            else TD.partition_sellcs_nnz(sc, 4, num_chunks=4))
+    m, n = coo.shape
+    X = torch.randn((m, 8), device=cuda)
+    xs = sellcs_slot_x(sc.row_perm, X, m)
+    C = sc.chunk
+    for sh in part.shards:
+        if sh.data.shape[0] == 0:
+            continue
+        win = xs[sh.t_first * C:(sh.t_first + sh.t_ptr.shape[0] - 1) * C]
+        _k3_close((sh.data, sh.cols, sh.t_ids, sh.t_ptr, sh.t_row_len),
+                  win, n, C)
+    mesh = make_spmm_mesh((4, 1), devices=["cuda:0"] * 4)
+    fn = (TD.spmm_row_distributed if label == "row"
+          else lambda *a, **kw: TD.spmm_merge_distributed(
+              *a, num_chunks=4, **kw))
+    _close(fn(part, X, mesh, op="T"), spmm_ref(coo, X, op="T"))
+
+
+def test_k3_column_bands(cuda, monkeypatch):
+    """A small L2 forces K3 into several column passes: one launch of the
+    wrapper, the same answer."""
+    from repro_torch.kernels import _lib
+    coo = _matrix(cuda, "hhh_like", 0.05)
+    sc = coo_to_sellcs(coo)
+    m, n = coo.shape
+    xs = sellcs_slot_x(sc.row_perm, torch.randn((m, 32), device=cuda), m)
+    # two thirds of this "L2" hold a quarter of the f32 [n, 32] Y
+    monkeypatch.setattr(_lib, "l2_bytes", lambda dev: 3 * 4 * n * 32 // 8)
+    assert TK.column_bands(n, 32, _lib.l2_bytes(cuda)) == 4
+    before = TK.sellcs_slots_t.launches
+    _k3_close((sc.data, sc.cols, sc.slice_of, sc.slice_ptr, sc.row_len),
+              xs, n, sc.chunk)
+    assert TK.sellcs_slots_t.launches == before + 1
+
+
+# --------------------------------------------------------------------------
+# K9's decode kernel
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["skewed", "groups_of_32", "empty_groups",
+                                  "deep_group"])
+def test_k9_decode_kernel_equals_tiled_bitwise(cuda, case, dtype):
+    """The decode kernel against the tiled kernel with ``torch.equal``
+    (both given the tiles' row counts, and on the live rows without
+    them) and against the plain version: a skewed decode step, eight
+    groups of exactly 32 rows, empty groups, and a group of 300 rows (a
+    full tile and tiles of more than 32 rows: several passes)."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    E, K, N = 32, 1024, 512
+    if case == "skewed":
+        skew = 1.0 / torch.arange(1, E + 1, device=cuda) ** 1.2
+        sizes = torch.bincount(torch.multinomial(
+            skew, 256, replacement=True, generator=gen), minlength=E)
+    else:
+        sizes = torch.zeros(E, dtype=torch.int64, device=cuda)
+        if case == "groups_of_32":
+            sizes[:8] = 32
+        elif case == "empty_groups":
+            sizes[[1, 4, 9, 30]] = torch.tensor([20, 1, 7, 31], device=cuda)
+        else:
+            sizes[[0, 3]] = torch.tensor([300, 17], device=cuda)
+    tokens = torch.randn((int(sizes.sum()), K), generator=gen,
+                         device=cuda).to(dtype)
+    w = torch.randn((E, K, N), generator=gen, device=cuda) * K ** -0.5
+    gp = TOPS.moe_group_pad(tokens, sizes, E, K)
+    args = (gp.lhs, w, gp.tile_expert)
+    before = TK9.moe_group_matmul_decode.launches
+    dec = TK9.moe_group_matmul_decode(*args, gp.tile_rows, n_rows=gp.n_rows)
+    assert TK9.moe_group_matmul_decode.launches == before + 1
+    tiled = TK9.moe_group_matmul_padded(*args, n_rows=gp.n_rows,
+                                        tile_rows=gp.tile_rows)
+    assert torch.equal(dec, tiled)
+    live = (torch.arange(128, device=cuda)[None, :]
+            < gp.tile_rows[:, None]).reshape(-1)
+    assert torch.equal(dec[live], TK9.moe_group_matmul_padded(
+        *args, n_rows=gp.n_rows)[live])
+    assert float(dec[~live].abs().max()) == 0.0
+    _close(dec, TK9.moe_group_matmul_padded_plain(
+        *args, n_rows=gp.n_rows, tile_rows=gp.tile_rows))
+    # without n_rows the tiles past the real length are empty by count
+    assert torch.equal(TK9.moe_group_matmul_decode(*args, gp.tile_rows),
+                       dec)
+
+
+def test_k9_decode_wrapper_validates_operands(cuda):
+    lhs = torch.zeros((256, 128), device=cuda)
+    w = torch.zeros((2, 128, 128), device=cuda)
+    te = torch.zeros(2, dtype=torch.int32, device=cuda)
+    tr = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        TK9.moe_group_matmul_decode(lhs, w, te, tr[:1])
+    with pytest.raises(TypeError):
+        TK9.moe_group_matmul_decode(lhs, w, te, tr.long())
+    with pytest.raises(ValueError):
+        TK9.moe_group_matmul_decode(lhs, w, te, tr.cpu())
