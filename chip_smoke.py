@@ -25,13 +25,17 @@ table and a final status line:
 Phases:
   1. build the kernels (nvcc, sm_90a, one process per source) and print
      the ``-Xptxas -v`` registers, spills and shared memory of K6/K7, K5,
-     K4, K3 and both K9 kernels;
+     K4, K2, K3 and the three K9 kernels (and any wgmma serialization
+     ptxas reports for the tensor-core one);
   2. kernel vs plain version for K1 (SELL-C-σ), K3 (its transpose), K2
      (merge-path SpMM), K4 (merge-path SpMV) and the carry step on
      hhh_like --scale 64, mawi_like --scale 4 and road_like --scale 8 for
-     k in {1, 8, 32, 33} (K4 is the k = 1 entry), with kernel, plain,
-     torch.sparse CSR (of A^T for K3) and bound times, K4 also with the
-     bound of its plan's stream and its time before its redesign, and
+     k in {1, 8, 32, 33} (K4 is the k = 1 entry; K2 and the carry step
+     also at k = 16), with kernel, plain, torch.sparse CSR (of A^T for K3)
+     and bound times, K4 also with the bound of its plan's stream and its
+     time before its redesign, K2 with the bound of its X gathers if every
+     one missed L2, the time of zeroing its Y alone, and two launches held
+     bitwise equal, and
      the whole A^T X multiply (slot-X gather + K3) against the torch
      oracle; on hhh_like at k = 32, where K3's time goes
      (``k3_breakdown``: K3 in 1, 2, 3, 4, 6 and 8 column bands, each
@@ -94,19 +98,26 @@ Phases:
      4,352), skewed seeded group sizes, bf16 rows times f32 weights; a
      decode case with 20 empty groups, one with eight groups of exactly
      32 rows and one with f32 rows; f32 x f32 at the reduced widths
-     (64, padded to 128) — each through the kernel
-     ``kernels.ops.moe_group_matmul`` routes it to (the tiled kernel, or
-     the decode kernel for few rows an expert, which must also equal the
-     tiled kernel bitwise), with card, tiled-kernel, plain, bound and
-     library ms (the library: ``torch.bmm`` of the live tiles by their
-     experts' weights, both gathered outside the timed window); the two
+     (64, padded to 128) — each through every K9 kernel that takes it
+     (the SIMT tiled kernel; the tensor-core kernel for bf16 rows; the
+     decode kernel for decode sizes, which must equal the tiled kernel
+     bitwise), ``route`` naming the one ``kernels.ops.moe_group_matmul``
+     takes, with card, plain, both bounds and library ms (the library:
+     ``torch.bmm`` of the live tiles by their experts' weights in f32 at
+     the "highest" matmul precision, both gathered outside the timed
+     window) and, on the prefill shapes, the tensor-core and tiled
+     kernels' largest errors against the float64 product; the three
      kernels at 4–128 rows an expert (``k9_crossover``); then ``serve
      --mode lm
      --arch granite-moe-1b-a400m --batch 32 --prompt-len 128 --gen 16
      --seed 0`` (the full config, 24 layers, 1.33e9 random parameters on
-     the card; 2 layers with --quick), which must launch K9's tiled
-     kernel 3 x layers times (prefill) and its decode kernel 3 x layers x
-     15 times and generate tokens in range; every MoE layer of its
+     the card; 2 layers with --quick), whose MoE products must launch
+     the kernel ``kernels.ops.moe_group_matmul``'s rule picks for bf16
+     rows, the tensor-core kernel, 3 x layers times for the prefill and
+     3 x layers x 15 for the decode steps (the SIMT kernels never), and
+     generate tokens in range; the same with ``--reduced`` (2 layers, f32
+     rows: the tiled kernel 3 x 2 times, the decode kernel 3 x 2 x 15);
+     every MoE layer of its
      prefill, fed that run's own input, must give the same output through
      K9, its plain version and the per-expert route within ``1e-2 *
      max(1, max|other|)`` (the bf16 rounding of the layer output), and the
@@ -140,12 +151,21 @@ each shard's nonzeros (value and column), one row offset per row, its
 touched X rows with their col_map entries read once, and its rows of Y
 written once. K9's bound counts the real rows (T x top-k) of bf16 lhs
 read once, the f32 weights of every expert that owns a row read once and
-the f32 output written once, or 2 flops per multiply-add at the float32
-peak (the weights are f32 and multiplied unrounded); its ``kernels``
-entry is one MoE layer (gate + up + down) of the served prefill, with the
-decode step's layer in ``decode_*`` (the decode kernel; the tiled kernel
-on the same operands in ``decode_tiled_ms``), and its ``launches`` are
-both kernels' (the decode kernel's in ``decode_launches``). The stdout
+the f32 output written once, against 2 flops per multiply-add: at the
+float32 peak for the SIMT kernels (the weights are f32 and multiplied
+unrounded), and three times over at the bf16 tensor-core peak (989
+TFLOP/s) for the tensor-core kernel, which multiplies the rows by the
+three exact bf16 terms of each weight. The ``kernels`` line's K9 entry
+is the SIMT kernels: the tiled kernel on one MoE layer (gate + up +
+down) of the served prefill, the decode step's layer in ``decode_*``
+(the decode kernel; the tiled kernel on the same operands in
+``decode_tiled_ms``), ``launches`` both kernels' in the ``--reduced``
+served run (the
+decode kernel's in ``decode_launches``); K9w is the tensor-core kernel
+on the same prefill layer, with the float32 FMA bound in
+``f32_fma_bound_ms`` and its and the tiled kernel's largest error
+against the float64 product in ``f64_err`` and ``tiled_f64_err``. The
+stdout
 ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
 latency, batcher phases and conversion times; the symmetric, GMRES and
@@ -184,6 +204,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 TOL_REL = 1e-4
 KS = (1, 8, 32, 33)
+K2_ONLY_KS = (16,)        # phase 2 also times K2 (and the carry) here
 MAIN_K = 32               # the serve flush width (--max-batch 32)
 
 
@@ -213,12 +234,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def device_ms(fn) -> float:
+    """One call's device time: calls queued behind a sleeping kernel run
+    back to back however slowly the host issues them, timed by CUDA
+    events (``examples/kernel_profile.py``'s measure)."""
+    from repro_torch.examples.kernel_profile import device_ms as measure
+    return measure(fn)
+
+
+# the H100 SXM's dense bf16 tensor-core rate (NVIDIA's data sheet)
+PEAK_FLOPS_BF16 = 989e12
+
+
+def bound_ms(nbytes: float, flops: float, peak: float = None):
     """Least time for the work: bytes over the data-sheet HBM rate or
-    flops over the float32 peak, whichever is larger."""
+    flops over ``peak`` (default the float32 peak), whichever is
+    larger."""
     from repro_torch.roofline import HBM_BW, PEAK_FLOPS_FP32
     t_b = nbytes / HBM_BW
-    t_f = flops / PEAK_FLOPS_FP32
+    t_f = flops / (peak or PEAK_FLOPS_FP32)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -240,7 +274,8 @@ def counters():
             "carry": MS.carry_out_fixup, "K5": BS.bsr_spmv,
             "K6": SK.tiled_spmm, "K7": BS.bsr_spmm,
             "K9": MG.moe_group_matmul_padded,
-            "K9d": MG.moe_group_matmul_decode}
+            "K9d": MG.moe_group_matmul_decode,
+            "K9w": MG.moe_group_matmul_wgmma}
 
 
 def reset_counts():
@@ -279,6 +314,9 @@ KERNEL_META = {
     "K9": ("moe_group_matmul_padded",
            "src/repro_torch/csrc/moe_group_matmul.cu",
            "src/repro/kernels/moe_group_matmul.py:75"),
+    "K9w": ("moe_group_matmul_wgmma",
+            "src/repro_torch/csrc/moe_group_matmul.cu",
+            "src/repro/kernels/moe_group_matmul.py:75"),
 }
 BLOCKED_ORDERS = ("csb", "csbh", "bcoh", "bcohc", "bcohch", "bcohchp",
                   "mergeb", "mergebh")
@@ -326,7 +364,8 @@ PREV_MS = {("road_like/csb", MAIN_K, "K6"): 4.955,
            ("hhh_like", 1, "K4"): 1.0756,
            ("mawi_like", 1, "K4"): 0.0650,
            ("road_like", 1, "K4"): 0.1910,
-           ("hhh_like", MAIN_K, "K3"): 1.804}
+           ("hhh_like", MAIN_K, "K3"): 1.804,
+           ("hhh_like", MAIN_K, "K2"): 1.658}
 # K4 and K5 take tens of microseconds: they and their library calls are
 # timed as the mean of one longer window
 SHORT_REPS = 250
@@ -385,6 +424,15 @@ def breakdown_text(bd: dict) -> str:
                 f"{k} {v:.1f}" for k, v in bd["kernels_us"].items()) + ")")
 
 
+def gather_bound_ms(nnz: int, m: int, n: int, k: int) -> float:
+    """Least time for K2's X gathers if every one misses L2: each nonzero
+    reads its X row (k f32, rounded up to 32-byte sectors) from HBM, plus
+    the CSR stream and Y once."""
+    row = -(-4 * k // 32) * 32
+    return bound_ms(nnz * row + spmm_bytes(nnz, m, n, 0) + 4 * m * k,
+                    2.0 * nnz * k)[0]
+
+
 def plan_bound_ms(plan, m: int, n: int) -> float:
     """Least time for K4's own stream: 12 B per plan item (column, value,
     row id) of every span, X read once and Y written once."""
@@ -403,6 +451,8 @@ def ptxas_lines(log: str, name: str) -> list:
             fn = line.split("Function properties for", 1)[1].strip()
         elif fn and name in fn and ("Used" in line or "spill" in line):
             out.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
+        elif "wgmma" in line and name in line:      # serialized wgmma
+            out.append(line.strip())
     return out
 
 
@@ -528,7 +578,8 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
           f"P={P} D={D} W={W} C={C} fill={sc.fill_ratio:.3f} "
           f"(setup {time.perf_counter() - t0:.1f} s)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    for k in ks:
+    for k in tuple(ks) + K2_ONLY_KS:
+        only_k2 = k not in ks
         X = torch.randn((n, k), generator=gen, device="cuda")
         lib_ms = cuda_ms(lambda: A_lib @ X, reps)
         rows = []
@@ -541,52 +592,54 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
         def k1p():
             return SK.sellcs_slots_plain(sc.data, sc.cols, sc.slice_ptr, X,
                                          num_slices=S, chunk=C)
-        yk, yp = k1(), k1p()
-        torch.cuda.synchronize()
-        b, by = bound_ms(spmm_bytes(nnz, m, n, k), 2.0 * nnz * k)
-        rows.append(("K1", max_err(yk, yp), tol_of(yp), cuda_ms(k1, reps),
-                     cuda_ms(k1p, max(reps // 2, 1)), b, by, lib_ms))
+        if not only_k2:
+            yk, yp = k1(), k1p()
+            torch.cuda.synchronize()
+            b, by = bound_ms(spmm_bytes(nnz, m, n, k), 2.0 * nnz * k)
+            rows.append(("K1", max_err(yk, yp), tol_of(yp),
+                         cuda_ms(k1, reps), cuda_ms(k1p, max(reps // 2, 1)),
+                         b, by, lib_ms))
 
-        # K3 (the transpose pass; X is [m, k], gathered into slot order
-        # outside the timed kernel, as the reference gathers outside its
-        # Pallas kernel)
-        Xm = torch.randn((m, k), generator=gen, device="cuda")
-        xs = sellcs_slot_x(sc.row_perm, Xm, m)
+            # K3 (the transpose pass; X is [m, k], gathered into slot order
+            # outside the timed kernel, as the reference gathers outside its
+            # Pallas kernel)
+            Xm = torch.randn((m, k), generator=gen, device="cuda")
+            xs = sellcs_slot_x(sc.row_perm, Xm, m)
 
-        def k3():
-            return SK.sellcs_slots_t(sc.data, sc.cols, sc.slice_of,
-                                     sc.slice_ptr, sc.row_len, xs,
-                                     n_out=n, chunk=C)
+            def k3():
+                return SK.sellcs_slots_t(sc.data, sc.cols, sc.slice_of,
+                                         sc.slice_ptr, sc.row_len, xs,
+                                         n_out=n, chunk=C)
 
-        def k3p():
-            return SK.sellcs_slots_t_plain(sc.data, sc.cols, sc.slice_of,
-                                           sc.slice_ptr, sc.row_len, xs,
-                                           n_out=n, chunk=C)
-        yk, yp = k3(), k3p()
-        torch.cuda.synchronize()
-        b, by = bound_ms(spmm_bytes(nnz, n, m, k), 2.0 * nnz * k)
-        rows.append(("K3", max_err(yk, yp), tol_of(yp), cuda_ms(k3, reps),
-                     cuda_ms(k3p, max(reps // 2, 1)), b, by,
-                     cuda_ms(lambda: At_lib @ Xm, reps),
-                     {"bands": SK.column_bands(
-                         n, k, props_l2()), "prev_ms": PREV_MS.get(
-                             (name, k, "K3"))}))
-        if main and k == MAIN_K:
-            shape_rows.append(k3_breakdown(name, sc, xs, n, k, reps, yp))
-        # the whole A^T X multiply (slot-X gather + K3) against the oracle
-        yt = SK.sellcs_spmm(sc, Xm, op="T")
-        ref_t = spmm_coo_t(coo, Xm)
-        err_t = max_err(yt, ref_t)
-        if err_t > tol_of(ref_t):
-            raise AssertionError(f"A^T X (gather + K3) vs oracle on {name} "
-                                 f"k={k}: {err_t:.3g}")
-        t_ms = cuda_ms(lambda: SK.sellcs_spmm(sc, Xm, op="T"), reps)
-        print(f"[chip_smoke]   A^T X k={k:<2} (gather + K3) {t_ms:.4f} ms, "
-              f"vs oracle max_abs_err={err_t:.3g}", flush=True)
-        shape_rows.append({"matrix": name, "scale": scale, "k": k,
-                           "multiply": "sellcs_spmm(op='T')", "ms": t_ms,
-                           "max_abs_err": err_t})
-        del Xm, xs, yt, ref_t
+            def k3p():
+                return SK.sellcs_slots_t_plain(sc.data, sc.cols, sc.slice_of,
+                                               sc.slice_ptr, sc.row_len, xs,
+                                               n_out=n, chunk=C)
+            yk, yp = k3(), k3p()
+            torch.cuda.synchronize()
+            b, by = bound_ms(spmm_bytes(nnz, n, m, k), 2.0 * nnz * k)
+            rows.append(("K3", max_err(yk, yp), tol_of(yp), cuda_ms(k3, reps),
+                         cuda_ms(k3p, max(reps // 2, 1)), b, by,
+                         cuda_ms(lambda: At_lib @ Xm, reps),
+                         {"bands": SK.column_bands(
+                             n, k, props_l2()), "prev_ms": PREV_MS.get(
+                                 (name, k, "K3"))}))
+            if main and k == MAIN_K:
+                shape_rows.append(k3_breakdown(name, sc, xs, n, k, reps, yp))
+            # the whole A^T X multiply (slot-X gather + K3) against the oracle
+            yt = SK.sellcs_spmm(sc, Xm, op="T")
+            ref_t = spmm_coo_t(coo, Xm)
+            err_t = max_err(yt, ref_t)
+            if err_t > tol_of(ref_t):
+                raise AssertionError(f"A^T X (gather + K3) vs oracle on "
+                                     f"{name} k={k}: {err_t:.3g}")
+            t_ms = cuda_ms(lambda: SK.sellcs_spmm(sc, Xm, op="T"), reps)
+            print(f"[chip_smoke]   A^T X k={k:<2} (gather + K3) {t_ms:.4f} "
+                  f"ms, vs oracle max_abs_err={err_t:.3g}", flush=True)
+            shape_rows.append({"matrix": name, "scale": scale, "k": k,
+                               "multiply": "sellcs_spmm(op='T')", "ms": t_ms,
+                               "max_abs_err": err_t})
+            del Xm, xs, yt, ref_t
 
         # K2 + carry step
         def k2():
@@ -595,14 +648,24 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
         def k2p():
             return MS.merge_partials_plain(plan, X, m)
         (yk, crk, cvk), (yp, crp, cvp) = k2(), k2p()
+        again = k2()
         torch.cuda.synchronize()
         if not torch.equal(crk, crp):
             raise AssertionError(f"K2 carry rows differ on {name} k={k}")
+        if not all(torch.equal(u, v) for u, v in zip((yk, crk, cvk), again)):
+            raise AssertionError(f"K2 is not deterministic on {name} k={k}")
+        del again
         err2 = max(max_err(yk, yp), max_err(cvk, cvp))
         carry_bytes = 2 * P * (4 + 4 * k)
         b, by = bound_ms(spmm_bytes(nnz, m, n, k), 2.0 * nnz * k)
+        # the wrapper zeroes all of Y before the launch: its cost alone
+        zscratch = torch.empty_like(yk)
         rows.append(("K2", err2, tol_of(yp), cuda_ms(k2, reps),
-                     cuda_ms(k2p, max(reps // 2, 1)), b, by, lib_ms))
+                     cuda_ms(k2p, max(reps // 2, 1)), b, by, lib_ms,
+                     {"gather_bound_ms": gather_bound_ms(nnz, m, n, k),
+                      "zero_y_ms": cuda_ms(zscratch.zero_, reps),
+                      "prev_ms": PREV_MS.get((name, k, "K2"))}))
+        del zscratch
         fk = MS.carry_out_fixup(yk.clone(), crk, cvk)
         fp = MS.carry_out_fixup_plain(yk.clone(), crk, cvk)
         torch.cuda.synchronize()
@@ -1592,8 +1655,9 @@ def k9_bounds() -> list:
     (gate, up: [T*8, 1024] x [32, 1024, 512]; down: [T*8, 512] x
     [32, 512, 1024]) with bf16 activations, f32 weights and f32 outputs,
     all 32 experts used: for a prefill of T = 4,096 tokens and a decode
-    step of T = 32. The flops go at the f32 FMA peak (the weights are f32
-    and are multiplied unrounded)."""
+    step of T = 32. Two figures: the flops as f32 FMAs at the f32 peak
+    (the SIMT kernels), and as the exact split's three bf16 products at
+    the bf16 tensor-core peak (the tensor-core kernel)."""
     d, f, E, top = (GRANITE[k] for k in ("d", "f", "E", "top"))
     out = []
     for tokens in (4096, 32):
@@ -1603,8 +1667,10 @@ def k9_bounds() -> list:
             nbytes += b
             flops += fl
         bms, by = bound_ms(nbytes, flops)
+        sms, sby = bound_ms(nbytes, 3 * flops, PEAK_FLOPS_BF16)
         out.append({"tokens": tokens, "bytes": nbytes, "flops": flops,
-                    "bound_ms": bms, "bound_by": by})
+                    "bound_ms": bms, "bound_by": by,
+                    "split_bound_ms": sms, "split_bound_by": sby})
     return out
 
 
@@ -1635,18 +1701,43 @@ def k9_operands(rows: int, E: int, kin: int, nout: int, lhs_dtype, gen,
     return xs, w, KO.moe_group_pad(xs, sizes, E, kp)
 
 
+def k9_f64_err(gp, w, n_live: int, outs) -> list:
+    """The largest error of each output in ``outs`` on the live tiles
+    against the product computed in float64 (every lhs and weight value
+    is exact in float64; 16 tiles a batched product)."""
+    import torch
+    kp = int(w.shape[1])
+    a = gp.lhs[:n_live * 128].double().view(n_live, 128, kp)
+    te = gp.tile_expert[:n_live].long()
+    errs = [0.0] * len(outs)
+    for t0 in range(0, n_live, 16):
+        sl = slice(t0, min(t0 + 16, n_live))
+        ref = torch.bmm(a[sl], w[te[sl]].double()).reshape(-1, w.shape[2])
+        rows = slice(t0 * 128, sl.stop * 128)
+        for i, o in enumerate(outs):
+            errs[i] = max(errs[i], float((o[rows].double() - ref).abs()
+                                         .max()))
+    return errs
+
+
 def k9_case(label, tokens: int, E: int, top: int, kin: int, nout: int,
             lhs_dtype, reps: int, gen, empty: int = 0, sizes=None) -> dict:
     """K9 on one grouped GEMM: the group padding of ``kernels.ops`` over
-    skewed group sizes (or ``sizes``), the kernel of the route
-    ``kernels.ops.moe_group_matmul`` takes for these shapes against its
-    plain version, timed with its plain version, its bound and the
-    library yardstick: ``torch.bmm`` of the live m-tiles (f32) by their
-    experts' weights, both gathered outside the timed window (no single
-    PyTorch call takes per-tile expert ids). Where the route is the
-    decode kernel, it must also equal the tiled kernel bitwise (both
-    given the tiles' row counts, and on the live rows without them), and
-    the tiled kernel's time is kept beside it."""
+    skewed group sizes (or ``sizes``) through every K9 kernel that takes
+    the operands — the SIMT tiled kernel, the tensor-core kernel (bf16
+    rows) and the decode kernel (decode-sized: at most 512 rows) — each
+    against the plain version on the real rows and timed, with the plain
+    version's time, the bound and the library yardstick: ``torch.bmm`` of
+    the live m-tiles (f32) by their experts' weights, both gathered
+    outside the timed window (no single PyTorch call takes per-tile expert
+    ids). ``route`` names the kernel ``kernels.ops.moe_group_matmul``
+    takes for these shapes and dtype, and ``ms`` is its time. The decode
+    kernel must equal the tiled kernel bitwise (both given the tiles' row
+    counts, and on the live rows without them). For the tensor-core
+    kernel on prefill shapes, its and the tiled kernel's largest error
+    against the float64 product are kept; its bound is the split
+    product's (three bf16 products at the bf16 tensor-core rate), with
+    the float32 FMA bound beside it."""
     import torch
     from repro_torch.kernels import moe_group_matmul as MG
     from repro_torch.kernels import ops as KO
@@ -1655,7 +1746,10 @@ def k9_case(label, tokens: int, E: int, top: int, kin: int, nout: int,
     rows = tokens * top
     xs, w, gp = k9_operands(rows, E, kin, nout, lhs_dtype, gen, sizes)
     kp = int(w.shape[1])
-    decode = KO.takes_decode_kernel(rows, E)
+    bf16 = lhs_dtype == torch.bfloat16
+    small = rows <= 512
+    route = ("wgmma" if bf16 else "decode"
+             if KO.takes_decode_kernel(rows, E, lhs_dtype) else "tiled")
 
     def tiled():
         return MG.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
@@ -1665,66 +1759,89 @@ def k9_case(label, tokens: int, E: int, top: int, kin: int, nout: int,
         return MG.moe_group_matmul_decode(gp.lhs, w, gp.tile_expert,
                                           gp.tile_rows, n_rows=gp.n_rows)
 
+    def wg():
+        return MG.moe_group_matmul_wgmma(gp.lhs, w, gp.tile_expert,
+                                         n_rows=gp.n_rows)
+
     def plain():
         return MG.moe_group_matmul_padded_plain(gp.lhs, w, gp.tile_expert,
                                                 n_rows=gp.n_rows,
                                                 tile_rows=gp.tile_rows)
-    kern = dec if decode else tiled
-    yk, yp = kern(), plain()
+    kerns = {"tiled": tiled}
+    if bf16:
+        kerns["wgmma"] = wg
+    if small:
+        kerns["decode"] = dec
+    yp = plain()
+    outs = {name: fn() for name, fn in kerns.items()}
     torch.cuda.synchronize()
-    err, tol = max_err(yk, yp), tol_of(yp)
+    live = (torch.arange(128, device="cuda")[None, :]
+            < gp.tile_rows[:, None]).reshape(-1)
+    # the plain version zeroes the rows past the tiles' counts: kernels
+    # not given the counts are held to it on the real rows
+    errs = {name: max_err(o[live], yp[live]) for name, o in outs.items()}
+    tol = tol_of(yp)
     bitwise = None
-    if decode:
-        yt = MG.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
-                                        n_rows=gp.n_rows,
-                                        tile_rows=gp.tile_rows)
-        live = (torch.arange(128, device="cuda")[None, :]
-                < gp.tile_rows[:, None]).reshape(-1)
-        bitwise = bool(torch.equal(yk, yt)) and bool(
-            torch.equal(yk[live], tiled()[live]))
-        del yt
+    if small:
+        yt2 = MG.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
+                                         n_rows=gp.n_rows,
+                                         tile_rows=gp.tile_rows)
+        bitwise = bool(torch.equal(outs["decode"], yt2)) and bool(
+            torch.equal(outs["decode"][live], outs["tiled"][live]))
+        del yt2
+    n_live = int(gp.n_rows) // 128
+    err64 = None
+    if bf16 and not small:
+        e_w, e_t = k9_f64_err(gp, w, n_live, (outs["wgmma"], outs["tiled"]))
+        err64 = {"wgmma": e_w, "tiled": e_t}
+    del outs
     # the whole ops-level multiply (padding, K9, unpadding) against the
     # per-token oracle on the unpadded operands
     from repro_torch.kernels.ref import moe_group_matmul_ref
     full = KO.moe_group_matmul(xs, w[:, :kin, :nout], sizes)
-    n_live = int(gp.n_rows) // 128
     # (the oracle gathers a weight block per row: decode sizes only)
     err_ref = (max_err(full, moe_group_matmul_ref(xs, w[:, :kin, :nout],
                                                   sizes))
-               if rows <= 512 else None)
+               if small else None)
     a_lib = gp.lhs[:n_live * 128].float().view(n_live, 128, kp)
     w_lib = w[gp.tile_expert[:n_live].long()]
     lib_ms = cuda_ms(lambda: torch.bmm(a_lib, w_lib), reps)
     n_used = int((sizes > 0).sum())
     nbytes, flops = k9_gemm_work(rows, kin, nout, n_used,
                                  xs.element_size())
-    b, by = bound_ms(nbytes, flops)
+    f32_b, f32_by = bound_ms(nbytes, flops)
+    split_b, split_by = bound_ms(nbytes, 3 * flops, PEAK_FLOPS_BF16)
+    times = {f"{name}_ms": cuda_ms(fn, reps) for name, fn in kerns.items()}
     row = {"case": label, "tokens": tokens, "rows": rows, "K": kin,
            "N": nout, "experts": E, "experts_used": n_used,
            "lhs_dtype": str(lhs_dtype).replace("torch.", ""),
            "t_pad": int(gp.lhs.shape[0]), "live_tiles": n_live,
-           "route": "decode" if decode else "tiled",
-           "max_abs_err": err, "tol": tol, "oracle_err": err_ref,
+           "route": route, "ms": times[f"{route}_ms"],
+           "max_abs_err": errs[route], "tol": tol,
+           **{f"{name}_err": e for name, e in errs.items()}, **times,
+           "oracle_err": err_ref, "f64_err": err64,
            "bitwise_vs_tiled": bitwise,
-           "ms": cuda_ms(kern, reps),
-           "tiled_ms": cuda_ms(tiled, reps),
            "plain_ms": cuda_ms(plain, max(reps // 2, 1)),
-           "bound_ms": b, "bound_by": by, "bytes": nbytes, "flops": flops,
-           "library_ms": lib_ms,
+           "f32_fma_bound_ms": f32_b, "f32_fma_bound_by": f32_by,
+           "split_bound_ms": split_b, "split_bound_by": split_by,
+           "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
            "max_group": int(sizes.max()), "empty_groups": E - n_used}
-    del a_lib, w_lib, full, yk, yp, gp, w, xs
+    del a_lib, w_lib, full, yp, gp, w, xs
     torch.cuda.empty_cache()
-    ok = err <= tol and (err_ref is None or err_ref <= tol) \
-        and bitwise is not False
+    ok = all(e <= tol for e in errs.values()) \
+        and (err_ref is None or err_ref <= tol) and bitwise is not False
     print(f"[chip_smoke]   K9 {label:<18} rows={rows} K={kin} N={nout} "
           f"used={n_used}/{E} max_group={row['max_group']} live_tiles="
-          f"{n_live} route={row['route']} max_abs_err={err:.3g} "
-          f"tol={tol:.3g} oracle_err={err_ref} bitwise_vs_tiled={bitwise} "
-          f"{'ok' if ok else 'FAIL'} kernel_ms={row['ms']:.4f} tiled_ms="
-          f"{row['tiled_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-          f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f}", flush=True)
+          f"{n_live} route={route} errors " + " ".join(
+              f"{k}={v:.3g}" for k, v in errs.items())
+          + f" tol={tol:.3g} oracle_err={err_ref} f64_err={err64} "
+          f"bitwise_vs_tiled={bitwise} {'ok' if ok else 'FAIL'} ms "
+          + " ".join(f"{k}={v:.4f}" for k, v in times.items())
+          + f" plain_ms={row['plain_ms']:.4f} bound_ms f32 FMA {f32_b:.4f}"
+          f" ({f32_by}), split {split_b:.4f} ({split_by}) library_ms="
+          f"{lib_ms:.4f}", flush=True)
     if not ok:
-        raise AssertionError(f"K9 disagrees on {label}: {err:.3g} / "
+        raise AssertionError(f"K9 disagrees on {label}: {errs} / "
                              f"{err_ref} > {tol:.3g}, bitwise {bitwise}")
     return row
 
@@ -1735,11 +1852,15 @@ K9_SWEEP = (4, 8, 16, 24, 32, 48, 64, 96, 128)
 
 
 def k9_crossover(reps: int, gen) -> list:
-    """The tiled and the decode kernel at granite's gate/up shape (K 1024,
-    N 512, 32 experts, bf16 rows) with every group ``g`` rows, for ``g``
-    in ``K9_SWEEP``: where the decode kernel stops being the faster one
-    (``kernels.ops.DECODE_ROWS_PER_EXPERT`` is set from it). The two
-    must agree bitwise at every ``g``."""
+    """The three K9 kernels at granite's gate/up shape (K 1024, N 512, 32
+    experts, bf16 rows) with every group ``g`` rows, for ``g`` in
+    ``K9_SWEEP``, called as ``kernels.ops.moe_group_matmul`` calls them:
+    where the decode kernel stops being faster than the tensor-core kernel
+    (``kernels.ops.DECODE_ROWS_PER_EXPERT`` is set from it), with the SIMT
+    tiled kernel beside them. Each time is one call's device time
+    (``device_ms``): at these sizes the host takes about as long to issue
+    a call. The decode and tiled kernels must agree bitwise at every
+    ``g``, the tensor-core kernel with them within the tolerance."""
     import torch
     from repro_torch.kernels import moe_group_matmul as MG
     d, f, E = GRANITE["d"], GRANITE["f"], GRANITE["E"]
@@ -1750,24 +1871,36 @@ def k9_crossover(reps: int, gen) -> list:
 
         def tiled():
             return MG.moe_group_matmul_padded(gp.lhs, w, gp.tile_expert,
-                                              n_rows=gp.n_rows,
-                                              tile_rows=gp.tile_rows)
+                                              n_rows=gp.n_rows)
 
         def dec():
             return MG.moe_group_matmul_decode(gp.lhs, w, gp.tile_expert,
                                               gp.tile_rows, n_rows=gp.n_rows)
-        if not torch.equal(tiled(), dec()):
+
+        def wg():
+            return MG.moe_group_matmul_wgmma(gp.lhs, w, gp.tile_expert,
+                                             n_rows=gp.n_rows)
+        yt, yd = tiled(), dec()
+        live = (torch.arange(128, device="cuda")[None, :]
+                < gp.tile_rows[:, None]).reshape(-1)
+        if not torch.equal(yt[live], yd[live]):
             raise AssertionError(f"K9 decode kernel is not bitwise equal to "
                                  f"the tiled kernel at {g} rows an expert")
-        row = {"rows_per_expert": g, "tiled_ms": cuda_ms(tiled, reps),
-               "decode_ms": cuda_ms(dec, reps)}
+        err = max_err(wg()[live], yt[live])
+        if err > tol_of(yt):
+            raise AssertionError(f"K9 tensor-core kernel vs tiled at {g} "
+                                 f"rows an expert: {err:.3g}")
+        row = {"rows_per_expert": g, "tiled_ms": device_ms(tiled),
+               "decode_ms": device_ms(dec), "wgmma_ms": device_ms(wg),
+               "wgmma_err": err}
         out.append(row)
-        del xs, w, gp
+        del xs, w, gp, yt, yd
     torch.cuda.empty_cache()
     print("[chip_smoke]   K9 crossover (gate/up, 32 experts, rows an "
-          "expert: tiled / decode ms): " + ", ".join(
+          "expert: tiled / decode / tensor-core device ms): " + ", ".join(
               f"{r['rows_per_expert']}: {r['tiled_ms']:.4f} / "
-              f"{r['decode_ms']:.4f}" for r in out), flush=True)
+              f"{r['decode_ms']:.4f} / {r['wgmma_ms']:.4f}" for r in out),
+          flush=True)
     return out
 
 
@@ -1813,21 +1946,40 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
         by = {c["case"]: c for c in cases}
         return 2 * by[f"{label}/gate_up"][key] + by[f"{label}/down"][key]
 
-    # the kernels line's K9 entry is one MoE layer of the served prefill
-    # (its bound from the summed bytes and flops, the tiled kernel), with
-    # the decode step's layer beside it (the decode kernel, and the tiled
-    # kernel on the same operands)
-    table["K9"] = {"max_abs_err": max(c["max_abs_err"] for c in cases)}
-    for pre, label in (("", "prefill"), ("decode_", "decode")):
-        b, by = bound_ms(layer(label, "bytes"), layer(label, "flops"))
-        table["K9"].update({
-            f"{pre}ms": layer(label, "ms"),
-            f"{pre}plain_ms": layer(label, "plain_ms"),
-            f"{pre}bound_ms": b, f"{pre}library_ms": layer(label,
-                                                           "library_ms")})
-        if not pre:
-            table["K9"]["bound_by"] = by
-    table["K9"]["decode_tiled_ms"] = layer("decode", "tiled_ms")
+    def worst(key):
+        return max(c[key] for c in cases if key in c)
+
+    # the kernels line: K9's entry is its SIMT kernels (the tiled one on
+    # one MoE layer of the served prefill, the decode kernel on one decode
+    # step's layer), at the f32 FMA bound; K9w the tensor-core kernel on
+    # the same prefill layer at the split product's bound, with its
+    # largest float64 error beside the tiled kernel's
+    pre_b, pre_by = bound_ms(layer("prefill", "bytes"),
+                             layer("prefill", "flops"))
+    dec_b, _ = bound_ms(layer("decode", "bytes"), layer("decode", "flops"))
+    table["K9"] = {
+        "max_abs_err": max(worst("tiled_err"), worst("decode_err")),
+        "ms": layer("prefill", "tiled_ms"),
+        "plain_ms": layer("prefill", "plain_ms"), "bound_ms": pre_b,
+        "bound_by": pre_by, "library_ms": layer("prefill", "library_ms"),
+        "decode_ms": layer("decode", "decode_ms"),
+        "decode_plain_ms": layer("decode", "plain_ms"),
+        "decode_bound_ms": dec_b,
+        "decode_library_ms": layer("decode", "library_ms"),
+        "decode_tiled_ms": layer("decode", "tiled_ms")}
+    split_b, split_by = bound_ms(layer("prefill", "bytes"),
+                                 3 * layer("prefill", "flops"),
+                                 PEAK_FLOPS_BF16)
+    f64 = [c["f64_err"] for c in cases if c["f64_err"]]
+    table["K9w"] = {
+        "max_abs_err": worst("wgmma_err"),
+        "ms": layer("prefill", "wgmma_ms"),
+        "plain_ms": layer("prefill", "plain_ms"), "bound_ms": split_b,
+        "bound_by": split_by, "f32_fma_bound_ms": pre_b,
+        "library_ms": layer("prefill", "library_ms"),
+        "f64_err": max(e["wgmma"] for e in f64),
+        "tiled_f64_err": max(e["tiled"] for e in f64),
+        "decode_ms": layer("decode", "wgmma_ms")}
     bounds = k9_bounds()
 
     n_layers = 2 if quick else 0
@@ -1844,13 +1996,7 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
         argv + ["--gen", str(LM_GEN), "--n-layers", str(n_layers)]))
     peak = torch.cuda.max_memory_allocated()
     cfg = res["cfg"]
-    # the prefill's MoE products take the tiled kernel, every decode
-    # step's the decode kernel
-    want = {"K9": 3 * cfg.n_layers, "K9d": 3 * cfg.n_layers * (LM_GEN - 1)}
-    for kern, n_want in want.items():
-        if counts[kern] != n_want:
-            raise AssertionError(f"serve --mode lm launched {kern} "
-                                 f"{counts[kern]} times, expected {n_want}")
+    check_k9_launches(cfg, counts, torch.bfloat16)
     if res["n_params"] != count_params(cfg):
         raise AssertionError(f"{res['n_params']} parameters, accounting "
                              f"says {count_params(cfg)}")
@@ -1864,6 +2010,7 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
             torch.isfinite(logits).all()):
         raise AssertionError("prefill logits malformed")
     layers = moe_layer_check(res)
+    reduced = run_reduced_lm()
     whole = {}
     for route, over in (("plain", {"moe_plain": True}),
                         ("ref", {"moe_use_kernel": False})):
@@ -1887,6 +2034,7 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
           "decode_ms_per_step": res["t_decode"] * 1e3 / steps,
           "tok_per_s": res["tok_per_s"],
           "max_memory_allocated": peak, "launches": counts,
+          "reduced_f32": reduced,
           "moe_layers": layers, "whole_model": whole, "profile": prof,
           "k9_cases": cases, "k9_crossover": crossover,
           "k9_bounds": bounds}
@@ -1895,7 +2043,7 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
           f", decode {lm['decode_ms_per_step']:.2f} ms/step "
           f"({res['tok_per_s']:.1f} tok/s); max_memory_allocated "
           f"{peak / 2 ** 30:.2f} GiB; K9 launches {counts['K9']} tiled, "
-          f"{counts['K9d']} decode",
+          f"{counts['K9d']} decode, {counts['K9w']} tensor-core",
           flush=True)
     for route, o in whole.items():
         print(f"[chip_smoke]   whole-model prefill logits K9 vs {route}: "
@@ -1908,6 +2056,59 @@ def run_lm(quick: bool, reps: int, table: dict) -> dict:
     lm["seconds"] = time.perf_counter() - t_phase
     print(f"[chip_smoke] lm phase {lm['seconds']:.1f} s", flush=True)
     return lm
+
+
+def check_k9_launches(cfg, counts, dtype) -> None:
+    """The K9 launches of one ``serve --mode lm`` run (a prefill of
+    LM_BATCH x LM_PROMPT tokens, LM_GEN - 1 decode steps of LM_BATCH) by
+    ``ops.moe_group_matmul``'s rule for its activations' dtype: three
+    grouped GEMMs a layer, each through the tensor-core kernel (bf16),
+    the decode kernel (f32, few rows an expert) or the SIMT tiled kernel
+    (f32); every other K9 kernel never."""
+    import torch
+    from repro_torch.kernels import ops as KO
+    want = {"K9": 0, "K9d": 0, "K9w": 0}
+    for tokens, calls in ((LM_BATCH * LM_PROMPT, 1), (LM_BATCH, LM_GEN - 1)):
+        rows = tokens * cfg.top_k
+        kern = ("K9w" if dtype == torch.bfloat16 else "K9d"
+                if KO.takes_decode_kernel(rows, cfg.n_experts, dtype)
+                else "K9")
+        want[kern] += 3 * cfg.n_layers * calls
+    for kern, n_want in want.items():
+        if counts[kern] != n_want:
+            raise AssertionError(f"serve --mode lm ({cfg.name}) launched "
+                                 f"{kern} {counts[kern]} times, expected "
+                                 f"{n_want}")
+
+
+def run_reduced_lm() -> dict:
+    """``serve --mode lm --reduced`` on the card: granite's reduced config
+    computes in f32, so its prefill's MoE products take K9's SIMT tiled
+    kernel and its decode steps' the decode kernel (the served path of
+    those two kernels; bf16 activations take the tensor-core kernel)."""
+    import torch
+    from repro_torch.launch import serve
+    res, counts = run_counted(lambda: serve.main(
+        ["--mode", "lm", "--arch", "granite-moe-1b-a400m", "--reduced",
+         "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+         "--gen", str(LM_GEN), "--seed", "0", "--device", "cuda"]))
+    cfg = res["cfg"]
+    check_k9_launches(cfg, counts, cfg.compute_dtype)
+    tok, logits = res["tokens"], res["prefill_logits"]
+    if tok.shape != (LM_BATCH, LM_GEN) or not bool(
+            ((tok >= 0) & (tok < cfg.vocab)).all()) or not bool(
+                torch.isfinite(logits).all()):
+        raise AssertionError("serve --mode lm --reduced: malformed output")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "prefill_ms": res["t_prefill"] * 1e3,
+           "decode_ms_per_step": res["t_decode"] * 1e3 / (LM_GEN - 1),
+           "launches": counts}
+    print(f"[chip_smoke] serve --mode lm --reduced (f32): prefill "
+          f"{out['prefill_ms']:.1f} ms, decode {out['decode_ms_per_step']:.2f}"
+          f" ms/step; K9 launches {counts['K9']} tiled, {counts['K9d']} "
+          f"decode, {counts['K9w']} tensor-core", flush=True)
+    del res
+    return out
 
 
 def moe_layer_check(res) -> dict:
@@ -2058,8 +2259,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _lib
     from repro_torch.roofline import device_properties
 
+    # library yardsticks in full f32 ("highest": no TF32 rounding)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     t_start = time.perf_counter()
     smi = smi_line()
     props = device_properties()
@@ -2079,9 +2282,11 @@ def main(argv=None) -> int:
     for label, lib, name in (("K6/K7", "tiled", "tiled_spmm_kernel"),
                              ("K5", "tiled", "tiled_spmv_kernel"),
                              ("K4", "merge", "merge_spmv_kernel"),
+                             ("K2", "merge", "merge_partials_kernel"),
                              ("K3", "sellcs", "sellcs_slots_t_kernel"),
                              ("K9", "moe", "moe_group_matmul_kernel"),
-                             ("K9 decode", "moe", "decode_kernel")):
+                             ("K9 decode", "moe", "decode_kernel"),
+                             ("K9 wgmma", "moe", "wgmma_kernel")):
         report = ptxas_lines(_lib.BUILD_LOGS.get(lib, ""), name)
         for line in report or ["the library was built before this run: "
                                "no report"]:
@@ -2161,11 +2366,13 @@ def main(argv=None) -> int:
                 "K4": counts_b["K4"], "carry": counts_b["carry"],
                 **blocked_row["launches"],
                 "K8": mesh_row["launches"]["K8"],
-                "K9": lm_row["launches"]["K9"] + lm_row["launches"]["K9d"]}
-    table["K9"]["decode_launches"] = lm_row["launches"]["K9d"]
+                "K9": lm_row["reduced_f32"]["launches"]["K9"]
+                + lm_row["reduced_f32"]["launches"]["K9d"],
+                "K9w": lm_row["launches"]["K9w"]}
+    table["K9"]["decode_launches"] = lm_row["reduced_f32"]["launches"]["K9d"]
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "carry", "K5", "K6", "K7", "K8",
-                "K9"):
+                "K9", "K9w"):
         nm, src, rep = KERNEL_META[key]
         row = table[key]
         entry = {"name": nm, "route": "cuda", "source": src,
@@ -2174,10 +2381,11 @@ def main(argv=None) -> int:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"]}
-        for extra in ("tile_gb_per_s", "per_shard_ms", "decode_ms",
-                      "decode_plain_ms", "decode_bound_ms",
+        for extra in ("tile_gb_per_s", "per_shard_ms", "gather_bound_ms",
+                      "decode_ms", "decode_plain_ms", "decode_bound_ms",
                       "decode_library_ms", "decode_tiled_ms",
-                      "decode_launches"):
+                      "decode_launches", "f32_fma_bound_ms", "f64_err",
+                      "tiled_f64_err"):
             if extra in row:
                 entry[extra] = row[extra]
         kernels.append(entry)

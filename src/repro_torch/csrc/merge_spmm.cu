@@ -17,21 +17,31 @@
 // below the f32 ridge. The plan's per-item row ids (seg) and the carry
 // buffer are this design's overhead on top of that bound.
 //
-// K2's design. One block of 256 threads per span p. The threads form G
-// groups of kt = min(pow2ceil(k), 32) threads; a group takes a contiguous
-// share of the span's items and its threads take kt consecutive columns (a
-// warp reads one X row segment when k >= 32). Each group runs a sequential
-// segmented sum over its share: a row whose items all lie inside the share
-// is written straight into Y; the share's first and last rows go to shared
-// memory. One thread per column then walks the 2G shared entries in order
-// and merges equal rows: rows inside the span are written into Y, and the
-// span's own first and last rows — the only rows a neighbouring span can
-// share — go to the [P, 2, k] carry buffer with their global row ids (-1
-// for none). The carry kernel then adds, for each row, all carries naming
-// it in span order (the mawi dense row crosses many spans) and adds the sum
-// into Y. Every row is written by exactly one thread exactly once, so Y is
-// deterministic and needs no atomics; Y must start zeroed (rows with no
-// items are never written).
+// K2's design. One block of 256 threads per span p, cut into chains of S
+// lanes (S = k / 4 rounded up to a power of two in [2, 32], each lane 4
+// consecutive columns: as float4 where k % 4 == 0, as scalars where
+// k > 32; else S = k rounded up, one column a lane; wider k takes passes
+// of S * 4 or S columns). A chain
+// owns a contiguous share of the span's items: k = 32 gives 32 chains of
+// 8 lanes, ~415 items each at hhh_like 64 (the parent kernel had 8
+// chains of 32 lanes walking one item at a time). A chain stages its next
+// items with one coalesced 4-byte load per lane from each of cols, vals
+// and seg (up to 32 items, loaded while the items before are summed) and
+// hands them out by shuffles; it issues the X rows of 4 items before the
+// first FMA that uses them, so a warp has up to 16 X rows in flight and a
+// block 128 (X is 128 MiB at hhh_like 64 with random columns: latency-
+// bound gathers, as K1's). Each chain runs a sequential segmented sum: a
+// row whose items all lie in its share is written straight into Y, its
+// first and last rows go to shared memory. The entries that name a row
+// are compacted in order (a ballot), and the head of each run of equal
+// rows sums the run in chain order, per column: rows inside the span go
+// into Y, the span's own first and last rows — the only rows a
+// neighbouring span can share — to the [P, 2, k] carry buffer with their
+// global row ids (-1 for none). The carry kernel then adds, for each row,
+// all carries naming it in span order (the mawi dense row crosses many
+// spans) and adds the sum into Y. Every output element is written by one
+// thread once, in a fixed order, so K2 is deterministic and needs no
+// atomics; Y must start zeroed (rows with no items are never written).
 //
 // K4's design (k = 1, a kernel of its own). At k = 1 K2's groups are
 // single threads ~48 items apart, so their loads neither coalesce nor
@@ -65,7 +75,75 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGather = 4;        // X rows a chain has in flight
 
+// The columns of one K2 lane: L = 4, four as float4 loads and stores
+// (k % 4 == 0); L = 5, four as scalars at any alignment (k % 4 != 0,
+// k > 32: one pass where one column a lane would take two); L = 1, one.
+// nv is the number of the lane's columns below k.
+template <int L> struct Vec;
+template <> struct Vec<4> {
+  using T = float4;
+  static constexpr int kCols = 4;
+  __device__ __forceinline__ static T zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ static T load(const float* p, int) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ static void fma(float v, const T& x, T& a) {
+    a.x = fmaf(v, x.x, a.x);
+    a.y = fmaf(v, x.y, a.y);
+    a.z = fmaf(v, x.z, a.z);
+    a.w = fmaf(v, x.w, a.w);
+  }
+  __device__ __forceinline__ static void store(float* p, const T& a, int) {
+    *reinterpret_cast<float4*>(p) = a;
+  }
+  __device__ __forceinline__ static void put(float* p, const T& a) {
+    p[0] = a.x;
+    p[1] = a.y;
+    p[2] = a.z;
+    p[3] = a.w;
+  }
+};
+template <> struct Vec<5> : Vec<4> {
+  __device__ __forceinline__ static T load(const float* p, int nv) {
+    T v = zero();
+    v.x = __ldg(p);
+    if (nv > 1) v.y = __ldg(p + 1);
+    if (nv > 2) v.z = __ldg(p + 2);
+    if (nv > 3) v.w = __ldg(p + 3);
+    return v;
+  }
+  __device__ __forceinline__ static void store(float* p, const T& a,
+                                               int nv) {
+    p[0] = a.x;
+    if (nv > 1) p[1] = a.y;
+    if (nv > 2) p[2] = a.z;
+    if (nv > 3) p[3] = a.w;
+  }
+};
+template <> struct Vec<1> {
+  using T = float;
+  static constexpr int kCols = 1;
+  __device__ __forceinline__ static T zero() { return 0.f; }
+  __device__ __forceinline__ static T load(const float* p, int) {
+    return __ldg(p);
+  }
+  __device__ __forceinline__ static void fma(float v, const T& x, T& a) {
+    a = fmaf(v, x, a);
+  }
+  __device__ __forceinline__ static void store(float* p, const T& a, int) {
+    *p = a;
+  }
+  __device__ __forceinline__ static void put(float* p, const T& a) {
+    *p = a;
+  }
+};
+
+template <int S, int LAYOUT>
 __global__ void __launch_bounds__(kThreads)
 merge_partials_kernel(const int* __restrict__ cols,
                       const float* __restrict__ vals,
@@ -74,103 +152,148 @@ merge_partials_kernel(const int* __restrict__ cols,
                       const int* __restrict__ span_len,
                       const float* __restrict__ x, float* __restrict__ y,
                       int* __restrict__ carry_row,
-                      float* __restrict__ carry_val, int D, int k, int kt) {
-  __shared__ int s_row[2 * kThreads];
-  __shared__ float s_val[2 * kThreads];
+                      float* __restrict__ carry_val, int D, int k) {
+  using V = Vec<LAYOUT>;
+  constexpr int VEC = V::kCols;
+  constexpr int NC = kThreads / S;            // chains
+  constexpr int CP = S * VEC;                 // columns a pass
+  constexpr int R = 32 / S < 4 ? 32 / S : 4;  // items a lane stages
+  constexpr int CH = S * R;                   // items a chain stages
+  __shared__ int s_row[2 * NC];
+  __shared__ int s_list[2 * NC];
+  __shared__ int s_n;
+  __shared__ __align__(16) float s_val[2 * NC * CP];
   const int p = blockIdx.x;
-  const int G = kThreads / kt;
-  const int g = threadIdx.x / kt;
-  const int c = threadIdx.x - g * kt;
+  const int ch = threadIdx.x / S, li = threadIdx.x % S;
+  const int lane = threadIdx.x & 31;
   const int len = span_len[p];
   const long long r0 = row_starts[p];
   const long long base = (long long)p * D;
-  const int L = (len + G - 1) / G;
-  const int a = min(g * L, len);
-  const int b = min(a + L, len);
+  const int L = (len + NC - 1) / NC;          // items a chain
+  const int a = min(ch * L, len), b = min(a + L, len);
+  const int rounds = (L + CH - 1) / CH;       // the same for every chain
 
-  for (int j0 = 0; j0 < k; j0 += kt) {
-    const int j = j0 + c;
-    const bool active = j < k;
-    int first_row = -1, last_row = -1;
-    float first_val = 0.f, last_val = 0.f;
-    if (a < b) {
-      int cur = seg[base + a];
-      float acc = 0.f;
-      bool is_first = true;
-      for (int i = a; i < b; ++i) {
-        const int s = seg[base + i];
-        if (s != cur) {
-          if (is_first) {
-            first_row = cur;
-            first_val = acc;
-            is_first = false;
-          } else if (active) {
-            y[(r0 + cur) * k + j] = acc;
+  for (int j0 = 0; j0 < k; j0 += CP) {
+    const int jl = j0 + li * VEC;             // the lane's first column
+    const bool active = jl < k;
+    const int ncols = min(VEC, k - jl);     // of them below k
+    int cur = -1, first_row = -1;
+    typename V::T acc = V::zero(), first_val = V::zero();
+    // the chain's next CH items, lane li holding items li + S * r: one
+    // coalesced load per array and r for the S lanes
+    int nc[R], ns[R];
+    float nv[R];
+    auto stage = [&](int i0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = i0 + r * S + li;
+        const bool ok = i < b;
+        nc[r] = ok ? __ldg(cols + base + i) : 0;
+        nv[r] = ok ? __ldg(vals + base + i) : 0.f;
+        ns[r] = ok ? __ldg(seg + base + i) : -1;
+      }
+    };
+    stage(a);
+    for (int rd = 0; rd < rounds; ++rd) {
+      int cc[R], cs[R];
+      float cv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        cc[r] = nc[r];
+        cs[r] = ns[r];
+        cv[r] = nv[r];
+      }
+      if (rd + 1 < rounds) stage(a + (rd + 1) * CH);   // in flight below
+#pragma unroll
+      for (int g0 = 0; g0 < CH; g0 += kGather) {
+        int col[kGather], sg[kGather];
+        float v[kGather];
+        typename V::T xv[kGather];
+#pragma unroll
+        for (int u = 0; u < kGather; ++u) {   // item g0 + u of the chunk
+          const int t = g0 + u;
+          col[u] = __shfl_sync(kFull, cc[t / S], t % S, S);
+          sg[u] = __shfl_sync(kFull, cs[t / S], t % S, S);
+          v[u] = __shfl_sync(kFull, cv[t / S], t % S, S);
+        }
+        // every gather of the group is issued before the first FMA
+#pragma unroll
+        for (int u = 0; u < kGather; ++u)
+          xv[u] = (sg[u] >= 0 && active)
+                      ? V::load(x + (long long)col[u] * k + jl, ncols)
+                      : V::zero();
+#pragma unroll
+        for (int u = 0; u < kGather; ++u) {
+          if (sg[u] < 0) continue;
+          if (sg[u] != cur) {
+            if (cur >= 0) {
+              if (first_row < 0) {
+                first_row = cur;
+                first_val = acc;
+              } else if (active) {
+                V::store(y + (r0 + cur) * k + jl, acc, ncols);
+              }
+            }
+            cur = sg[u];
+            acc = V::zero();
           }
-          cur = s;
-          acc = 0.f;
+          V::fma(v[u], xv[u], acc);
         }
-        if (active)
-          acc = fmaf(vals[base + i], x[(long long)cols[base + i] * k + j],
-                     acc);
-      }
-      if (is_first) {
-        first_row = cur;
-        first_val = acc;
-      } else {
-        last_row = cur;
-        last_val = acc;
       }
     }
-    if (c == 0) {
-      s_row[2 * g] = first_row;
-      s_row[2 * g + 1] = last_row;
+    // the chain's first and last rows go to shared memory (last -1 when
+    // the chain saw one row, both -1 when it saw none)
+    const bool one = first_row < 0;
+    if (li == 0) {
+      s_row[2 * ch] = one ? cur : first_row;
+      s_row[2 * ch + 1] = one ? -1 : cur;
     }
-    s_val[(2 * g) * kt + c] = first_val;
-    s_val[(2 * g + 1) * kt + c] = last_val;
+    V::put(s_val + (2 * ch) * CP + li * VEC, one ? acc : first_val);
+    V::put(s_val + (2 * ch + 1) * CP + li * VEC, one ? V::zero() : acc);
     __syncthreads();
-
-    if (threadIdx.x < kt) {
-      int run_row = -1, span_first = -1, span_last = -1;
-      float run = 0.f, v_first = 0.f, v_last = 0.f;
-      for (int e = 0; e < 2 * G; ++e) {
-        const int r = s_row[e];
-        if (r < 0) continue;
-        const float v = s_val[e * kt + c];
-        if (r == run_row) {
-          run += v;
-          continue;
-        }
-        if (run_row >= 0) {
-          if (span_first < 0) {
-            span_first = run_row;
-            v_first = run;
-          } else if (active) {
-            y[(r0 + run_row) * k + j] = run;
-          }
-        }
-        run_row = r;
-        run = v;
+    // the entries that name a row, in order
+    if (threadIdx.x < 32) {
+      int n = 0;
+      for (int e0 = 0; e0 < 2 * NC; e0 += 32) {
+        const int e = e0 + lane;
+        const bool ok = e < 2 * NC && s_row[e] >= 0;
+        const unsigned bal = __ballot_sync(kFull, ok);
+        if (ok) s_list[n + __popc(bal & ((1u << lane) - 1u))] = e;
+        n += __popc(bal);
       }
-      if (run_row >= 0) {
-        if (span_first < 0) {
-          span_first = run_row;
-          v_first = run;
-        } else {
-          span_last = run_row;
-          v_last = run;
-        }
-      }
-      if (j0 == 0 && c == 0) {
-        carry_row[2 * p] = span_first >= 0 ? (int)(r0 + span_first) : -1;
-        carry_row[2 * p + 1] = span_last >= 0 ? (int)(r0 + span_last) : -1;
-      }
-      if (active) {
-        carry_val[(2LL * p) * k + j] = v_first;
-        carry_val[(2LL * p + 1) * k + j] = v_last;
-      }
+      if (lane == 0) s_n = n;
     }
     __syncthreads();
+    // the head of each run of equal rows sums the run in chain order, per
+    // column: the span's first and last rows go to the carries, the
+    // others (wholly inside the span) into Y
+    const int n = s_n;
+    const int first = n > 0 ? s_row[s_list[0]] : -1;
+    const int last = n > 0 ? s_row[s_list[n - 1]] : -1;
+    for (int task = threadIdx.x; task < n * CP; task += kThreads) {
+      const int qi = task / CP, c = task - qi * CP;
+      const int j = j0 + c;
+      const int r = s_row[s_list[qi]];
+      if (j >= k || (qi > 0 && s_row[s_list[qi - 1]] == r)) continue;
+      float sum = s_val[s_list[qi] * CP + c];
+      for (int q2 = qi + 1; q2 < n && s_row[s_list[q2]] == r; ++q2)
+        sum += s_val[s_list[q2] * CP + c];
+      if (r == first)
+        carry_val[(2LL * p) * k + j] = sum;
+      else if (r == last)
+        carry_val[(2LL * p + 1) * k + j] = sum;
+      else
+        y[(r0 + r) * k + j] = sum;
+    }
+    for (int c = threadIdx.x; c < CP && j0 + c < k; c += kThreads) {
+      if (n == 0) carry_val[(2LL * p) * k + j0 + c] = 0.f;
+      if (last == first) carry_val[(2LL * p + 1) * k + j0 + c] = 0.f;
+    }
+    if (j0 == 0 && threadIdx.x == 0) {
+      carry_row[2 * p] = n > 0 ? (int)(r0 + first) : -1;
+      carry_row[2 * p + 1] = n > 0 && last != first ? (int)(r0 + last) : -1;
+    }
+    __syncthreads();                  // the entries are rewritten next pass
   }
 }
 
@@ -200,10 +323,15 @@ __global__ void merge_carry_fixup_kernel(const int* __restrict__ carry_row,
   y[(long long)r * k + j] += sum;
 }
 
-int column_tile(int k) {
-  int kt = 1;
-  while (kt < k && kt < 32) kt <<= 1;
-  return kt;
+template <int S, int L>
+void launch_partials_sv(const int* cols, const float* vals, const int* seg,
+                        const int* row_starts, const int* span_len,
+                        const float* x, float* y, int* carry_row,
+                        float* carry_val, int P, int D, int k,
+                        cudaStream_t s) {
+  merge_partials_kernel<S, L><<<P, kThreads, 0, s>>>(
+      cols, vals, seg, row_starts, span_len, x, y, carry_row, carry_val, D,
+      k);
 }
 
 int launch_partials(const int* cols, const float* vals, const int* seg,
@@ -211,9 +339,21 @@ int launch_partials(const int* cols, const float* vals, const int* seg,
                     const float* x, float* y, int* carry_row,
                     float* carry_val, int P, int D, int k, void* stream) {
   if (P <= 0 || k <= 0) return 0;
-  merge_partials_kernel<<<P, kThreads, 0, (cudaStream_t)stream>>>(
-      cols, vals, seg, row_starts, span_len, x, y, carry_row, carry_val,
-      D, k, column_tile(k));
+  cudaStream_t s = (cudaStream_t)stream;
+  // lanes a chain: enough for the row (4 columns a lane where k % 4 == 0
+  // or k > 32, else 1), at least 2 and at most 32; wider k takes passes
+  const int L = k % 4 == 0 ? 4 : (k > 32 ? 5 : 1);
+  const int need = L == 1 ? k : (k + 3) / 4;
+  int S = 2;
+  while (S < need && S < 32) S <<= 1;
+#define REPRO_K2(SV, LV)                                                    \
+  if (S == SV && L == LV)                                                   \
+    launch_partials_sv<SV, LV>(cols, vals, seg, row_starts, span_len, x, y, \
+                               carry_row, carry_val, P, D, k, s);
+  REPRO_K2(2, 1) REPRO_K2(4, 1) REPRO_K2(8, 1) REPRO_K2(16, 1)
+  REPRO_K2(32, 1) REPRO_K2(2, 4) REPRO_K2(4, 4) REPRO_K2(8, 4)
+  REPRO_K2(16, 4) REPRO_K2(32, 4) REPRO_K2(16, 5) REPRO_K2(32, 5)
+#undef REPRO_K2
   return (int)cudaGetLastError();
 }
 
@@ -227,8 +367,6 @@ constexpr int kTileItems = kSpmvThreads * kSpmvItems;
 // shared-memory slot of a warp's item i: one word of skew every 32, so
 // the transposed reads (lane * kSpmvItems + v) meet no bank twice
 __host__ __device__ constexpr int skewed(int i) { return i + (i >> 5); }
-
-constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kSpmvThreads)
 merge_spmv_kernel(const int* __restrict__ cols,

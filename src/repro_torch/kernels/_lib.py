@@ -31,7 +31,7 @@ SOURCES = {
     "sellcs": "sellcs_spmm.cu",      # K1, K8 and K3
     "merge": "merge_spmm.cu",        # K2, K4 and the carry step
     "tiled": "tiled_spmm.cu",        # K5, K6 and K7
-    "moe": "moe_group_matmul.cu",    # K9 (tiled and decode)
+    "moe": "moe_group_matmul.cu",    # K9 (tiled, decode, wgmma)
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,6 +61,8 @@ SIGNATURES = {
                                         _I, _I, _P]),
     "moe_group_matmul_decode_launch": ("moe", [_P, _I, _P, _P, _P, _P, _P,
                                                _I, _I, _I, _I, _P]),
+    "moe_group_matmul_wgmma_launch": ("moe", [_P, _I, _P, _P, _P, _P, _I,
+                                              _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -23,7 +23,15 @@ kernel for tiles that hold few real rows (a decode step): it multiplies
 only each tile's real rows, and its sums are bitwise those of the tiled
 kernel. Its launches are counted in
 ``moe_group_matmul_decode.launches``; ``kernels.ops.moe_group_matmul``
-picks it from the shapes.
+picks it for f32 rows from the shapes.
+
+:func:`moe_group_matmul_wgmma` computes it for bf16 lhs on the tensor
+cores: each f32 weight is split exactly into three bf16 terms
+(:func:`split_bf16x3`), and the three bf16 products go into one set of
+f32 accumulators, so every product is the reference's and only the order
+of the f32 sums differs. Its launches are counted in
+``moe_group_matmul_wgmma.launches``; ``kernels.ops.moe_group_matmul``
+takes it for bf16 rows at every size.
 
 ``n_rows`` (optional, an int32 tensor of one element on lhs's device) is
 the real padded length, ``padded_ptr[E]`` in ``kernels.ops``: m-tiles
@@ -114,6 +122,25 @@ def moe_group_matmul_padded_plain(lhs: torch.Tensor, rhs: torch.Tensor,
     return out.view(T_pad, N)
 
 
+def split_bf16x3(w: torch.Tensor):
+    """The exact three-term split the tensor-core kernel makes of its f32
+    weights: ``(hi, mid, lo)`` bf16 with ``hi + mid + lo == w`` exactly
+    for finite ``|w| >= 2**-100`` (below that the error is under
+    ``2**-126``). ``hi`` is ``w`` with the low 16 bits of its pattern
+    cleared, ``mid`` the same of ``r = w - hi``, ``lo = r - mid``; Inf and
+    NaN map to ``(w, 0, 0)``."""
+    w = w.to(torch.float32)
+    bits = w.view(torch.int32)
+    mask = torch.tensor(-65536, dtype=torch.int32)          # 0xffff0000
+    finite = torch.isfinite(w)
+    hi = torch.where(finite, (bits & mask).view(torch.float32), w)
+    r = torch.where(finite, w - hi, 0.0)
+    mid = (r.view(torch.int32) & mask).view(torch.float32)
+    # truncated as the kernel does (exact unless |w| < 2**-100)
+    lo = ((r - mid).view(torch.int32) & mask).view(torch.float32)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
 def _card_operands(lhs: torch.Tensor, rhs: torch.Tensor,
                    tile_expert: torch.Tensor, n_rows: Optional[torch.Tensor],
                    tile_rows: Optional[torch.Tensor]):
@@ -180,11 +207,19 @@ def moe_group_matmul_padded(lhs: torch.Tensor, rhs: torch.Tensor,
                                             n_rows=n_rows,
                                             tile_rows=tile_rows)
         return out.to(out_dtype)
+    return _launch_tiles(moe_group_matmul_padded, "moe_group_matmul_launch",
+                         lhs, rhs, tile_expert, out_dtype, n_rows, tile_rows)
+
+
+def _launch_tiles(wrapper, fn: str, lhs, rhs, tile_expert, out_dtype,
+                  n_rows, tile_rows) -> torch.Tensor:
+    """Launch the C entry point ``fn`` of a kernel that multiplies whole
+    m-tiles (the tiled and tensor-core kernels), count it on ``wrapper``,
+    and zero the rows past the tiles' counts when they are given."""
     head, tail, out, rhs = _card_operands(lhs, rhs, tile_expert, n_rows,
                                           tile_rows)
-    fn = "moe_group_matmul_launch"
     _lib.check(_lib.entry(fn)(*head, *tail), fn)
-    moe_group_matmul_padded.launches += 1
+    wrapper.launches += 1
     if tile_rows is not None:        # not on the prefill path: no cost there
         out = _zero_dead_rows(out.view(-1, M_TILE, out.shape[1]),
                               tile_rows).view(out.shape)
@@ -221,3 +256,31 @@ def moe_group_matmul_decode(lhs: torch.Tensor, rhs: torch.Tensor,
 
 
 moe_group_matmul_decode.launches = 0
+
+
+def moe_group_matmul_wgmma(lhs: torch.Tensor, rhs: torch.Tensor,
+                           tile_expert: torch.Tensor, *,
+                           out_dtype=torch.float32,
+                           n_rows: Optional[torch.Tensor] = None,
+                           tile_rows: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K9 on the tensor cores: the function of
+    :func:`moe_group_matmul_padded` for bf16 lhs, each f32 weight split
+    exactly into three bf16 terms whose products share one set of f32
+    accumulators (the reference's products, summed in another order).
+    The plain version on CPU tensors."""
+    _check_dtypes(rhs, out_dtype)
+    if lhs.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core kernel takes bf16 lhs, got "
+                        f"{lhs.dtype}")
+    if lhs.device.type == "cpu":
+        out = moe_group_matmul_padded_plain(lhs, rhs, tile_expert,
+                                            n_rows=n_rows,
+                                            tile_rows=tile_rows)
+        return out.to(out_dtype)
+    return _launch_tiles(moe_group_matmul_wgmma,
+                         "moe_group_matmul_wgmma_launch", lhs, rhs,
+                         tile_expert, out_dtype, n_rows, tile_rows)
+
+
+moe_group_matmul_wgmma.launches = 0

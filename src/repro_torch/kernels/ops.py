@@ -18,9 +18,10 @@ from . import moe_group_matmul as _moe
 from .tiling import TiledSparse
 
 M_TILE = _moe.M_TILE
-# ``moe_group_matmul`` takes K9's decode kernel when the rows average at
-# most this many per expert (from the shapes alone, no host sync); see
-# PERF.md for the measured crossover against the tiled kernel
+# ``moe_group_matmul`` takes K9's decode kernel for f32 rows that average
+# at most this many per expert (from the shapes alone, no host sync);
+# bf16 rows take the tensor-core kernel at every size. See PERF.md for
+# the measured crossover of the three kernels
 DECODE_ROWS_PER_EXPERT = 48
 
 
@@ -103,11 +104,15 @@ def moe_group_pad(tokens: torch.Tensor, group_sizes: torch.Tensor,
                         padded_ptr[E:].to(torch.int32), tile_rows)
 
 
-def takes_decode_kernel(rows: int, num_experts: int) -> bool:
-    """Whether ``moe_group_matmul`` routes ``rows`` expert-sorted rows
-    over ``num_experts`` groups to K9's decode kernel: when they average
-    at most ``DECODE_ROWS_PER_EXPERT`` rows a group (static shapes)."""
-    return rows <= DECODE_ROWS_PER_EXPERT * num_experts
+def takes_decode_kernel(rows: int, num_experts: int,
+                        dtype=torch.float32) -> bool:
+    """Whether ``moe_group_matmul`` routes ``rows`` expert-sorted rows of
+    ``dtype`` over ``num_experts`` groups to K9's decode kernel: f32 rows
+    that average at most ``DECODE_ROWS_PER_EXPERT`` rows a group (static
+    shapes). bf16 rows never: the tensor-core kernel is faster at every
+    size."""
+    return dtype != torch.bfloat16 \
+        and rows <= DECODE_ROWS_PER_EXPERT * num_experts
 
 
 def moe_group_matmul(tokens: torch.Tensor, weights: torch.Tensor,
@@ -119,10 +124,11 @@ def moe_group_matmul(tokens: torch.Tensor, weights: torch.Tensor,
 
     Pads the groups to ``M_TILE`` (:func:`moe_group_pad`) and K/N to
     multiples of 128 (zero rows and columns compute zeros); K9 skips the
-    tiles past the real padded length. Few rows per expert
-    (:func:`takes_decode_kernel`, a decode step) take K9's decode kernel,
-    which multiplies only each tile's real rows; the others the tiled
-    kernel."""
+    tiles past the real padded length. bf16 tokens take K9's tensor-core
+    kernel (the weights split exactly into three bf16 terms); f32 tokens
+    the decode kernel when few rows fall to an expert
+    (:func:`takes_decode_kernel`, a decode step: it multiplies only each
+    tile's real rows), else the tiled kernel."""
     T, K = tokens.shape
     E, K2, N = weights.shape
     if K2 != K or group_sizes.shape != (E,):
@@ -140,7 +146,11 @@ def moe_group_matmul(tokens: torch.Tensor, weights: torch.Tensor,
         out_pad = _moe.moe_group_matmul_padded_plain(
             g.lhs, weights, g.tile_expert, n_rows=g.n_rows,
             tile_rows=g.tile_rows)
-    elif takes_decode_kernel(T, E):
+    elif g.lhs.dtype == torch.bfloat16:
+        out_pad = _moe.moe_group_matmul_wgmma(g.lhs, weights,
+                                              g.tile_expert,
+                                              n_rows=g.n_rows)
+    elif takes_decode_kernel(T, E, g.lhs.dtype):
         out_pad = _moe.moe_group_matmul_decode(
             g.lhs, weights, g.tile_expert, g.tile_rows, n_rows=g.n_rows)
     else:

@@ -298,19 +298,25 @@ def _k9_operands(cuda, case):
 
 def _k9_launches():
     return (TK9.moe_group_matmul_padded.launches,
-            TK9.moe_group_matmul_decode.launches)
+            TK9.moe_group_matmul_decode.launches,
+            TK9.moe_group_matmul_wgmma.launches)
 
 
 @pytest.mark.parametrize("case", ["decode", "empty_groups", "f32_reduced"])
 def test_grouped_gemm_kernel_matches_plain(cuda, case):
     """``ops.moe_group_matmul`` launches one K9 kernel, the one its route
-    takes from the shapes (the decode kernel for few rows an expert),
-    against the plain version; ``plain=True`` launches nothing."""
+    takes from the shapes and the tokens' dtype (the tensor-core kernel
+    for bf16 tokens; for f32 the decode kernel when few rows fall to an
+    expert, else the tiled one), against the plain version;
+    ``plain=True`` launches nothing."""
     tokens, w, sizes = _k9_operands(cuda, case)
-    decode = TOPS.takes_decode_kernel(tokens.shape[0], w.shape[0])
-    tiled0, dec0 = _k9_launches()
+    decode = TOPS.takes_decode_kernel(tokens.shape[0], w.shape[0],
+                                      tokens.dtype)
+    wgmma = tokens.dtype == torch.bfloat16
+    tiled0, dec0, wg0 = _k9_launches()
     got = TOPS.moe_group_matmul(tokens, w, sizes)
-    want_counts = (tiled0 + (not decode), dec0 + decode)
+    want_counts = (tiled0 + (not decode and not wgmma), dec0 + decode,
+                   wg0 + wgmma)
     assert _k9_launches() == want_counts
     want = TOPS.moe_group_matmul(tokens, w, sizes, plain=True)
     assert _k9_launches() == want_counts
@@ -842,3 +848,144 @@ def test_k9_decode_wrapper_validates_operands(cuda):
         TK9.moe_group_matmul_decode(lhs, w, te, tr.long())
     with pytest.raises(ValueError):
         TK9.moe_group_matmul_decode(lhs, w, te, tr.cpu())
+
+
+# --------------------------------------------------------------------------
+# K2 redesigned (chains of S lanes, staged indices, gathers in flight)
+# --------------------------------------------------------------------------
+def _k2_case(cuda, case):
+    """(matrix, plan) of a K2 case: a suite matrix at small scale with its
+    default span count, or ``_k4_plans``' carried and own plans (empty
+    spans, one-row spans, row 11 across more than 20 spans)."""
+    if case in ("carried", "own"):
+        coo, plans = _k4_plans(cuda)
+        return coo, plans[case]
+    coo = _matrix(cuda, case, 0.2)
+    return coo, TMS.cached_merge_plan(coo_to_csr(coo))
+
+
+@pytest.mark.parametrize("k", [2, 3, 8, 16, 32, 33, 64])
+@pytest.mark.parametrize("case", ["hhh_like", "mawi_like", "road_like",
+                                  "carried", "own"])
+def test_k2_matches_plain_at_every_width(cuda, case, k):
+    """K2 against its plain version at every lane layout (float4 columns
+    for k % 4 == 0, one column a lane else; passes for k > 32 columns),
+    the carry rows equal, two launches bitwise equal, and the whole
+    multiply (K2 + carry step) against the oracle."""
+    coo, plan = _k2_case(cuda, case)
+    m = coo.shape[0]
+    X = torch.randn((coo.shape[1], k), device=cuda)
+    before = TK._merge_spmm_partials.launches
+    got = TK._merge_spmm_partials(plan, X, m)
+    again = TK._merge_spmm_partials(plan, X, m)
+    torch.cuda.synchronize()
+    assert TK._merge_spmm_partials.launches == before + 2
+    y, cr, cv = TMS.merge_partials_plain(plan, X, m)
+    assert torch.equal(got[1], cr)
+    _close(got[0], y)
+    _close(got[2], cv)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    full = TMS.carry_out_fixup(got[0].clone(), got[1], got[2])
+    _close(full, spmm_ref(coo, X))
+
+
+# --------------------------------------------------------------------------
+# K9's tensor-core kernel (bf16 rows, f32 weights split into three terms)
+# --------------------------------------------------------------------------
+def _same_nonfinite_close(got, want):
+    """Non-finite at the same places (an Inf row meeting a zero term gives
+    NaN where the f32 product gives Inf), the finite values within the
+    tolerance of the finite ones."""
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got.isfinite(), want.isfinite())
+    assert torch.equal(got.isnan() & want.isnan(), want.isnan())
+    fin = want.isfinite()
+    if bool(fin.any()):
+        _close(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("case", ["skewed", "empty_groups", "alternating",
+                                  "past_n_rows", "clamped_ids",
+                                  "nonfinite_lhs", "inf_weights"])
+def test_k9_wgmma_kernel_matches_plain_and_tiled(cuda, case):
+    """The tensor-core kernel against the plain version (f32 products) and
+    the SIMT tiled kernel on the same operands: a skewed router over 32
+    experts at granite's gate shape, empty groups, one m-tile an expert
+    (no two neighbouring tiles share weights; an odd number of tiles),
+    tiles past ``n_rows`` (zeros), expert ids out of range (clamped, as
+    the reference's gathers clamp), NaN/Inf rows (non-finite where the
+    plain version is) and Inf weights (the split maps them to (w, 0,
+    0))."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    E, K, N = 32, 1024, 512
+    if case == "empty_groups":
+        E, K, N = 6, 256, 384
+        sizes = torch.tensor([300, 0, 0, 129, 0, 1], device=cuda)
+    elif case == "alternating":
+        E, K, N = 8, 256, 256
+        sizes = torch.full((E,), 100, device=cuda)
+    else:
+        skew = 1.0 / torch.arange(1, E + 1, device=cuda) ** 1.2
+        sizes = torch.bincount(torch.multinomial(
+            skew, 2048, replacement=True, generator=gen), minlength=E)
+    tokens = torch.randn((int(sizes.sum()), K), generator=gen,
+                         device=cuda).to(torch.bfloat16)
+    w = torch.randn((E, K, N), generator=gen, device=cuda) * K ** -0.5
+    if case == "nonfinite_lhs":
+        tokens[3, 7] = float("nan")
+        tokens[100, 0] = float("inf")
+        tokens[500, 9] = -float("inf")
+    if case == "inf_weights":
+        w[0, 5, 3] = float("inf")
+        w[1, 0, 100] = -float("inf")
+        w[2, 17, 200] = float("nan")
+    gp = TOPS.moe_group_pad(tokens, sizes, E, K)
+    te = gp.tile_expert
+    n_rows = gp.n_rows
+    if case == "clamped_ids":
+        te = te.clone()
+        te[0], te[2] = -3, E + 5
+    if case == "past_n_rows":
+        n_rows = torch.tensor([256], dtype=torch.int32, device=cuda)
+    before = TK9.moe_group_matmul_wgmma.launches
+    got = TK9.moe_group_matmul_wgmma(gp.lhs, w, te, n_rows=n_rows)
+    again = TK9.moe_group_matmul_wgmma(gp.lhs, w, te, n_rows=n_rows)
+    torch.cuda.synchronize()
+    assert TK9.moe_group_matmul_wgmma.launches == before + 2
+    assert torch.equal(got.isnan(), again.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(again))
+    want = TK9.moe_group_matmul_padded_plain(gp.lhs, w, te, n_rows=n_rows)
+    tiled = TK9.moe_group_matmul_padded(gp.lhs, w, te, n_rows=n_rows)
+    _same_nonfinite_close(got, want)
+    _same_nonfinite_close(got, tiled)
+    if case in ("skewed", "past_n_rows"):
+        assert bool(got.isfinite().all())
+    dead = int(n_rows)
+    assert float(got[dead:].abs().max()) == 0.0
+    if case == "past_n_rows":
+        assert float(got[:dead].abs().max()) > 0.0
+    # given the tiles' row counts, rows past them are zero
+    cut = TK9.moe_group_matmul_wgmma(gp.lhs, w, te, n_rows=n_rows,
+                                     tile_rows=gp.tile_rows)
+    live = (torch.arange(128, device=cuda)[None, :]
+            < gp.tile_rows[:, None]).reshape(-1)
+    assert float(cut[~live].abs().max()) == 0.0
+    assert torch.equal(torch.nan_to_num(cut[live]),
+                       torch.nan_to_num(got[live]))
+
+
+def test_k9_wgmma_wrapper_validates_operands(cuda):
+    lhs = torch.zeros((256, 128), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((2, 128, 128), device=cuda)
+    te = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):           # f32 rows keep the tiled kernel
+        TK9.moe_group_matmul_wgmma(lhs.float(), w, te)
+    with pytest.raises(ValueError):          # one expert id per m-tile
+        TK9.moe_group_matmul_wgmma(lhs, w, te[:1])
+    with pytest.raises(ValueError):          # on another device
+        TK9.moe_group_matmul_wgmma(lhs, w.cpu(), te)
+    before = TK9.moe_group_matmul_wgmma.launches
+    out = TK9.moe_group_matmul_wgmma(lhs, w, te, out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and float(out.abs().max()) == 0.0
+    assert TK9.moe_group_matmul_wgmma.launches == before + 1
+
