@@ -35,7 +35,12 @@ Phases:
      and bound times, K4 also with the bound of its plan's stream and its
      time before its redesign, K2 with the bound of its X gathers if every
      one missed L2, the time of zeroing its Y alone, and two launches held
-     bitwise equal, and
+     bitwise equal, K1 as ``sellcs_spmm`` launches it (``row_len=``), two
+     launches held bitwise equal, its time before its redesign, the time
+     of ``sellcs_spmm``'s un-permute scatter of its slot sums
+     (``unpermute_ms``), at k = 1 its ``launch_breakdown`` and, once per
+     matrix, its work plan (build seconds, bytes, items, combine segments)
+     and the deepest slice, and
      the whole A^T X multiply (slot-X gather + K3) against the torch
      oracle; on hhh_like at k = 32, where K3's time goes
      (``k3_breakdown``: K3 in 1, 2, 3, 4, 6 and 8 column bands, each
@@ -84,9 +89,12 @@ Phases:
      (num_chunks = 4), with and without compact X; the row and merge
      multiplies with up-front, overlapped and fused (K8) gathers and op T
      (K3) against the float64 oracle, the gather modes bitwise equal, K8
-     on every row shard against its plain version (card, plain, library
-     — ``torch.sparse`` CSR of the shard's rows — and bound ms, per shard
-     and summed) beside phase 2's single-device K1; road_like --scale 8
+     on every row shard (with the shard's ``row_len`` window and depth
+     base, as the mesh launches it) against its plain version and bitwise
+     against K1 over the up-front slab ``X[col_map]`` (card, plain,
+     library — ``torch.sparse`` CSR of the shard's rows — bound ms and
+     the time before its redesign, per shard and summed) beside phase
+     2's single-device K1; road_like --scale 8
      on the row schedule with a compact fused gather and mawi_like
      --scale 4 on the merge schedule (its dense row split over shards);
      then ``serve --devices 4 --compact-x on --gather fused`` at hhh_like
@@ -184,7 +192,8 @@ multiplies agree with the triplet oracle computed in float64 by the same
 rule: a float32 oracle sums mawi_like's 262,144-entry row with an error
 of that order itself) — float32 sums taken
 in another order (K1 keeps the reference's order per slot but fuses the
-multiply-add; K2/K4 sum each row in shares and carries; K3, K5, K6 and
+multiply-add, and adds a row cut into pieces piece by piece; K2/K4 sum
+each row in shares and carries; K3, K5, K6 and
 K7 add with atomics in an order that varies from run to run). Exits non-zero on any
 failure; there is no CPU fallback.
 """
@@ -365,7 +374,17 @@ PREV_MS = {("road_like/csb", MAIN_K, "K6"): 4.955,
            ("mawi_like", 1, "K4"): 0.0650,
            ("road_like", 1, "K4"): 0.1910,
            ("hhh_like", MAIN_K, "K3"): 1.804,
-           ("hhh_like", MAIN_K, "K2"): 1.658}
+           ("hhh_like", MAIN_K, "K2"): 1.658,
+           # K1 before its redesign (the parent design's chip_smoke.py run)
+           ("hhh_like", 1, "K1"): 0.1197, ("hhh_like", 8, "K1"): 0.2330,
+           ("hhh_like", 32, "K1"): 0.8282, ("hhh_like", 33, "K1"): 1.0808,
+           ("mawi_like", 1, "K1"): 54.51, ("mawi_like", 8, "K1"): 54.00,
+           ("mawi_like", 32, "K1"): 54.82, ("mawi_like", 33, "K1"): 52.28,
+           ("road_like", 1, "K1"): 0.0415, ("road_like", 8, "K1"): 0.1000,
+           ("road_like", 32, "K1"): 0.3310,
+           ("road_like", 33, "K1"): 0.3557}
+# K8 per hhh_like row shard before its redesign (the same run)
+PREV_K8_MS = (0.2301, 0.2249, 0.2255, 0.2250)
 # K4 and K5 take tens of microseconds: they and their library calls are
 # timed as the mean of one longer window
 SHORT_REPS = 250
@@ -407,7 +426,8 @@ def launch_breakdown(fn, reps: int = SHORT_REPS) -> dict:
                      getattr(e, "self_cuda_time_total", 0.0))
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             name = next((k for k in ("tiled_spmv_kernel", "spmv_prepass",
-                                     "merge_spmv_kernel", "csrmv", "spmv",
+                                     "merge_spmv_kernel", "sellcs_items",
+                                     "sellcs_combine", "csrmv", "spmv",
                                      "Fill", "fill")
                          if k in e.key), e.key[:48])
             device[name] = device.get(name, 0.0) + us / reps
@@ -544,6 +564,31 @@ def k3_shard_rows(sharded, Xt, label: str) -> dict:
     return worst
 
 
+def unpermute(sc, y_slots, m: int):
+    """``sellcs_spmm``'s scatter of K1's slot sums back to natural row
+    order (padding slots land on row m, dropped)."""
+    import torch
+    y = torch.zeros((m + 1, y_slots.shape[1]), dtype=torch.float32,
+                    device=y_slots.device)
+    return y.index_add_(0, sc.row_perm.long(), y_slots)[:m]
+
+
+def k1_plan_line(name: str, sc) -> None:
+    """K1's work plan for the stream as ``sellcs_spmm`` uses it (built at
+    the first launch, kept on ``slice_ptr``): build seconds, bytes, items,
+    combine segments and scratch rows, and the stream's deepest slice."""
+    from repro_torch.spmm import slots_plan as SP
+    plan = SP.cached_slots_plan(sc.slice_ptr, num_slices=sc.num_slices,
+                                chunk=sc.chunk, row_len=sc.row_len)
+    widths = sc.slice_ptr[1:] - sc.slice_ptr[:-1]
+    print(f"[chip_smoke]   K1 plan on {name}: build {plan.build_s:.4f} s, "
+          f"{plan.nbytes()} bytes, {plan.n_items} items of depth <= "
+          f"{plan.depth}, {plan.n_segs} combine segments, "
+          f"{plan.n_scratch} scratch rows; deepest slice "
+          f"{int(widths.max())} width-rows, deepest group walk "
+          f"{plan.deepest}", flush=True)
+
+
 def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
                   shape_rows: list, main: bool):
     """Phase 2 on one matrix: every kernel against its plain version.
@@ -584,21 +629,39 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
         lib_ms = cuda_ms(lambda: A_lib @ X, reps)
         rows = []
 
-        # K1
+        # K1, as sellcs_spmm launches it (each lane stops at its row_len)
         def k1():
             return SK.sellcs_slots(sc.data, sc.cols, sc.slice_ptr, X,
-                                   num_slices=S, chunk=C)
+                                   num_slices=S, chunk=C, row_len=sc.row_len)
 
         def k1p():
             return SK.sellcs_slots_plain(sc.data, sc.cols, sc.slice_ptr, X,
-                                         num_slices=S, chunk=C)
+                                         num_slices=S, chunk=C,
+                                         row_len=sc.row_len)
         if not only_k2:
             yk, yp = k1(), k1p()
+            again = k1()
             torch.cuda.synchronize()
+            if not torch.equal(yk, again):
+                raise AssertionError(f"K1 is not deterministic on {name} "
+                                     f"k={k}")
+            if k == ks[0]:
+                k1_plan_line(name, sc)
             b, by = bound_ms(spmm_bytes(nnz, m, n, k), 2.0 * nnz * k)
             rows.append(("K1", max_err(yk, yp), tol_of(yp),
                          cuda_ms(k1, reps), cuda_ms(k1p, max(reps // 2, 1)),
-                         b, by, lib_ms))
+                         b, by, lib_ms,
+                         {"unpermute_ms": cuda_ms(
+                             lambda: unpermute(sc, yk, m), reps),
+                          "prev_ms": PREV_MS.get((name, k, "K1"))}))
+            del again
+            if k == 1:
+                # a call of tens of microseconds: the host's issue time
+                # against the card's
+                bd = launch_breakdown(k1)
+                print(f"[chip_smoke]   K1 breakdown on {name}: "
+                      f"{breakdown_text(bd)}", flush=True)
+                rows[-1][-1]["breakdown"] = bd
 
             # K3 (the transpose pass; X is [m, k], gathered into slot order
             # outside the timed kernel, as the reference gathers outside its
@@ -1415,8 +1478,11 @@ def k8_rows(coo, sharded, X, reps: int) -> dict:
     out = {"shards": [], "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_bytes": 0, "flops": 0.0, "max_abs_err": 0.0}
     for p, sh in enumerate(sharded.shards):
+        # as the mesh's _local_slots launches it: the shard's row_len
+        # window and depth base
         kw = dict(num_slices=sh.num_slices, chunk=sharded.chunk,
-                  col_map=sh.col_map)
+                  col_map=sh.col_map, row_len=sh.t_row_len,
+                  depth_ptr=sh.t_ptr)
 
         def kern():
             return SK.sellcs_slots(sh.data, sh.cols, sh.slice_ptr, X, **kw)
@@ -1425,11 +1491,23 @@ def k8_rows(coo, sharded, X, reps: int) -> dict:
             return SK.sellcs_slots_plain(sh.data, sh.cols, sh.slice_ptr, X,
                                          **kw)
         yk, yp = kern(), plain()
+        # K1 on the up-front slab X[col_map], over the same plan
+        # (uncounted: a comparison, not the path)
+        y1 = torch.empty_like(yk)
+        SK._sellcs_slots_launch(
+            SK._slots.cached_slots_plan(
+                sh.slice_ptr, num_slices=sh.num_slices,
+                chunk=sharded.chunk, row_len=sh.t_row_len,
+                depth_ptr=sh.t_ptr), sh.data, sh.cols,
+            X.index_select(0, sh.col_map), y1)
         torch.cuda.synchronize()
         err, tol = max_err(yk, yp), tol_of(yp)
         if err > tol:
             raise AssertionError(f"K8 disagrees with its plain version on "
                                  f"shard {p}: {err:.3g} > {tol:.3g}")
+        if not torch.equal(yk, y1):
+            raise AssertionError(f"K8 on shard {p} is not bitwise K1 on "
+                                 "the up-front slab")
         A_p, rows_p, nnz_p = _shard_csr(coo, sharded, p)
         nbytes = (nnz_p * 8 + (rows_p + 1) * 4
                   + sh.n_touched * (k * 4 + 4) + rows_p * k * 4)
@@ -1439,7 +1517,8 @@ def k8_rows(coo, sharded, X, reps: int) -> dict:
                "ms": cuda_ms(kern, reps),
                "plain_ms": cuda_ms(plain, max(reps // 2, 1)),
                "library_ms": cuda_ms(lambda: A_p @ X, reps),
-               "bound_ms": b, "bound_by": by}
+               "bound_ms": b, "bound_by": by,
+               "prev_ms": PREV_K8_MS[p] if p < len(PREV_K8_MS) else None}
         out["shards"].append(row)
         for key in ("ms", "plain_ms", "library_ms"):
             out[key] += row[key]
@@ -1449,11 +1528,13 @@ def k8_rows(coo, sharded, X, reps: int) -> dict:
         print(f"[chip_smoke]   K8 shard {p}: rows {rows_p} nnz {nnz_p} "
               f"touched {sh.n_touched} max_abs_err={err:.3g} tol={tol:.3g} "
               f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} bound_ms={b:.4f} ({by})",
+              f"library_ms={row['library_ms']:.4f} bound_ms={b:.4f} ({by})"
+              f" prev_ms={row['prev_ms']}; bitwise the up-front slab",
               flush=True)
-        del A_p, yk, yp
+        del A_p, yk, yp, y1
     out["bound_ms"], out["bound_by"] = bound_ms(out["bound_bytes"],
                                                 out["flops"])
+    out["prev_ms"] = sum(PREV_K8_MS)
     return out
 
 
@@ -1551,7 +1632,8 @@ def run_mesh(coo, sc, k1_ms: float, scale_road: float, scale_mawi: float,
     k8 = k8_rows(coo, parts["row/cx"], X, reps)
     print(f"[chip_smoke]   K8 over {MESH_P} shards: {k8['ms']:.4f} ms "
           f"(plain {k8['plain_ms']:.4f}, library {k8['library_ms']:.4f}, "
-          f"bound {k8['bound_ms']:.4f} {k8['bound_by']})", flush=True)
+          f"bound {k8['bound_ms']:.4f} {k8['bound_by']}, prev "
+          f"{k8['prev_ms']:.4f})", flush=True)
     del parts, ref, ref_t, X, Xt
     torch.cuda.empty_cache()
 
@@ -1619,7 +1701,8 @@ def run_mesh(coo, sc, k1_ms: float, scale_road: float, scale_mawi: float,
     k8_table = {"max_abs_err": k8["max_abs_err"], "ms": k8["ms"],
                 "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"],
                 "bound_by": k8["bound_by"], "library_ms": k8["library_ms"],
-                "per_shard_ms": [r["ms"] for r in k8["shards"]]}
+                "per_shard_ms": [r["ms"] for r in k8["shards"]],
+                "prev_ms": k8["prev_ms"]}
     table["K8"] = k8_table
     secs = time.perf_counter() - t_phase
     print(f"[chip_smoke] mesh phase {secs:.1f} s", flush=True)
@@ -2382,10 +2465,10 @@ def main(argv=None) -> int:
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"]}
         for extra in ("tile_gb_per_s", "per_shard_ms", "gather_bound_ms",
-                      "decode_ms", "decode_plain_ms", "decode_bound_ms",
-                      "decode_library_ms", "decode_tiled_ms",
-                      "decode_launches", "f32_fma_bound_ms", "f64_err",
-                      "tiled_f64_err"):
+                      "unpermute_ms", "decode_ms", "decode_plain_ms",
+                      "decode_bound_ms", "decode_library_ms",
+                      "decode_tiled_ms", "decode_launches",
+                      "f32_fma_bound_ms", "f64_err", "tiled_f64_err"):
             if extra in row:
                 entry[extra] = row[extra]
         kernels.append(entry)

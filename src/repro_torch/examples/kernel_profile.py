@@ -1,11 +1,12 @@
-"""K2 (merge-path CSR SpMM), K3 (the SELL-C-σ transpose) and K9 (the
-grouped GEMM) at the main path's shapes on the card, timed per call with
-the host's issue time hidden, so that two trees can be compared on one
-card (the other tree's package on the path, this file run as a script):
+"""K1/K8 (SELL-C-σ SpMM and its fused-gather form), K2 (merge-path CSR
+SpMM), K3 (the SELL-C-σ transpose) and K9 (the grouped GEMM) at the main
+path's shapes on the card, timed per call with the host's issue time
+hidden, so that two trees can be compared on one card (the other tree's
+package on the path, this file run as a script):
 
     python -m repro_torch.examples.kernel_profile
     PYTHONPATH=<other tree>/src \\
-        python src/repro_torch/examples/kernel_profile.py [--only k2,k9]
+        python src/repro_torch/examples/kernel_profile.py [--only k1,k8]
 
 The first launches are K9's: one granite decode step's gate and down
 products (32 tokens x top-8 over 32 experts, bf16 rows, f32 weights),
@@ -15,17 +16,27 @@ SIMT tiled kernel. Then K2 on hhh_like --scale 64, mawi_like
 --scale 4 and road_like --scale 8 at k = 8, 16, 32 and 33 (each
 matrix's own merge plan), then K3 on hhh_like --scale 64 at k = 32 (the
 main path's shape), the other widths and matrices (mawi_like --scale 4,
-road_like --scale 8, rmat scale 20 as the GMRES example builds it).
-``--only`` picks groups (k9, k2, k3). ``device_ms`` is one call's device
-time: the launches are queued behind a sleeping kernel, so they run back
-to back however slowly the host issues them; ``events_ms`` is the mean
-of the same calls issued at the host's pace. The last line is one JSON
-object.
+road_like --scale 8, rmat scale 20 as the GMRES example builds it), then
+K1 on the phase-2 matrices at k = 1, 8, 16, 32 and 33 as ``sellcs_spmm``
+calls it (with ``row_len`` where the tree's wrapper takes it), and K8 on
+the four row shards of hhh_like --scale 64 (compact X) at k = 32, per
+shard and summed. ``--depths 8,16,32`` also times K1 over plans of those
+item depths (trees with ``spmm.slots_plan`` only).
+``--only paths`` times the single-vector paths K1 sits on at the host's
+pace instead: ``sellcs_spmm`` at k = 1 on the phase-2 matrices, a
+forward GMRES solve at rmat scale 20 (per K1 launch) and serve A's
+batched and sequential legs. ``--only`` picks groups (k9, k2, k3, k1,
+k8, paths; the default is every kernel group). ``device_ms`` is one call's
+device time: the launches are queued behind a sleeping kernel, so they
+run back to back however slowly the host issues them; ``events_ms`` is
+the mean of the same calls issued at the host's pace. The last line is
+one JSON object.
 Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 
@@ -140,20 +151,22 @@ def k2_rows() -> list:
     return out
 
 
-def _sellcs(name: str, scale: float):
+def _coo(name: str, scale: float):
     from repro_torch.core import to_coo
     from repro_torch.data import matrices
-    from repro_torch.spmm.sellcs import coo_to_sellcs
     if name == "rmat":
         rows, cols, _, shape = matrices.rmat(scale=int(scale),
                                              edge_factor=10, seed=0)
         deg = np.bincount(cols, minlength=shape[1]).astype(np.float32)
-        coo = to_coo(rows, cols, 1.0 / np.maximum(deg[cols], 1.0), shape,
-                     device="cuda")
-    else:
-        coo = matrices.as_coo(matrices.test_suite(scale)[name].make(),
-                              device="cuda")
-    return coo_to_sellcs(coo)
+        return to_coo(rows, cols, 1.0 / np.maximum(deg[cols], 1.0), shape,
+                      device="cuda")
+    return matrices.as_coo(matrices.test_suite(scale)[name].make(),
+                           device="cuda")
+
+
+def _sellcs(name: str, scale: float):
+    from repro_torch.spmm.sellcs import coo_to_sellcs
+    return coo_to_sellcs(_coo(name, scale))
 
 
 def k3_rows() -> list:
@@ -186,16 +199,169 @@ def k3_rows() -> list:
     return out
 
 
+K1_KS = (1, 8, 16, 32, 33)
+
+
+def _k1_kwargs(sc) -> dict:
+    """``row_len=`` where the tree's K1 wrapper takes it."""
+    from repro_torch.spmm import kernels as SK
+    params = inspect.signature(SK.sellcs_slots).parameters
+    return {"row_len": sc.row_len} if "row_len" in params else {}
+
+
+def k1_rows(depths=()) -> list:
+    """K1 on each phase-2 matrix at k = 1, 8, 16, 32 and 33, as
+    ``sellcs_spmm`` launches it, and over plans of other item depths."""
+    from repro_torch.spmm import kernels as SK
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    out = []
+    for name, scale in (("hhh_like", 64.0), ("mawi_like", 4.0),
+                        ("road_like", 8.0)):
+        sc = _sellcs(name, scale)
+        n = sc.shape[1]
+        kw = dict(num_slices=sc.num_slices, chunk=sc.chunk, **_k1_kwargs(sc))
+        for k in K1_KS:
+            X = torch.randn((n, k), generator=gen, device="cuda")
+
+            def fn():
+                return SK.sellcs_slots(sc.data, sc.cols, sc.slice_ptr, X,
+                                       **kw)
+            out.append({"kernel": "K1", "matrix": name, "scale": scale,
+                        "k": k, "device_ms": device_ms(fn),
+                        "events_ms": events_ms(fn)})
+            print(f"[kernel_profile] {out[-1]}", flush=True)
+            for d in depths:
+                from repro_torch.spmm import slots_plan as SP
+                plan = SP.build_slots_plan(
+                    sc.slice_ptr, num_slices=sc.num_slices, chunk=sc.chunk,
+                    row_len=sc.row_len, depth=d)
+                y = torch.empty((sc.num_slices * sc.chunk, k),
+                                device="cuda")
+
+                def fd():
+                    SK._sellcs_slots_launch(plan, sc.data, sc.cols, X, y)
+                out.append({"kernel": f"K1 D={d}", "matrix": name,
+                            "scale": scale, "k": k, "items": plan.n_items,
+                            "segments": plan.n_segs,
+                            "device_ms": device_ms(fd),
+                            "events_ms": events_ms(fd)})
+                print(f"[kernel_profile] {out[-1]}", flush=True)
+            del X
+        del sc
+        torch.cuda.empty_cache()
+    return out
+
+
+def k8_rows() -> list:
+    """K8 on the four row shards (compact X) of hhh_like --scale 64 at
+    k = 32, with each shard's ``row_len`` and depth base where the tree's
+    wrapper takes them; per shard and summed."""
+    from repro_torch.spmm import distributed as TD
+    from repro_torch.spmm import kernels as SK
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    sc = _sellcs("hhh_like", 64.0)
+    part = TD.partition_sellcs_rows(sc, 4, compact_x=True)
+    X = torch.randn((sc.shape[1], 32), generator=gen, device="cuda")
+    takes = "row_len" in inspect.signature(SK.sellcs_slots).parameters
+    out, total = [], 0.0
+    for p, sh in enumerate(part.shards):
+        kw = dict(num_slices=sh.num_slices, chunk=part.chunk,
+                  col_map=sh.col_map)
+        if takes:
+            kw.update(row_len=sh.t_row_len, depth_ptr=sh.t_ptr)
+
+        def fn():
+            return SK.sellcs_slots(sh.data, sh.cols, sh.slice_ptr, X, **kw)
+        out.append({"kernel": "K8", "matrix": "hhh_like", "scale": 64.0,
+                    "k": 32, "shard": p, "device_ms": device_ms(fn),
+                    "events_ms": events_ms(fn)})
+        total += out[-1]["device_ms"]
+        print(f"[kernel_profile] {out[-1]}", flush=True)
+    out.append({"kernel": "K8", "matrix": "hhh_like", "scale": 64.0,
+                "k": 32, "shard": "sum", "device_ms": total})
+    print(f"[kernel_profile] {out[-1]}", flush=True)
+    del part, sc, X
+    torch.cuda.empty_cache()
+    return out
+
+
+def path_rows() -> list:
+    """The single-vector paths K1 sits on, at the host's pace: the whole
+    SELL-C-σ multiply (``sellcs_spmm``: K1, then the un-permute) at k = 1
+    on the phase-2 matrices; one forward GMRES solve at rmat scale 20 as
+    the GMRES example runs it, after a warm-up solve, per solve and per
+    K1 launch; serve A (hhh_like --scale 64, 256 requests, batches of 32,
+    SELL-C-σ pinned), batched and sequential."""
+    import time
+    from repro_torch.core import PlanSpec
+    from repro_torch.examples import gmres as G
+    from repro_torch.launch import serve
+    from repro_torch.spmm import SparseOperator
+    from repro_torch.spmm import kernels as SK
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    out = []
+    for name, scale in (("hhh_like", 64.0), ("mawi_like", 4.0),
+                        ("road_like", 8.0)):
+        sc = _sellcs(name, scale)
+        x = torch.randn((sc.shape[1], 1), generator=gen, device="cuda")
+
+        def fn():
+            return SK.sellcs_spmm(sc, x)
+        out.append({"path": "sellcs_spmm", "matrix": name, "scale": scale,
+                    "k": 1, "events_ms": events_ms(fn, 200),
+                    "device_ms": device_ms(fn, 200)})
+        print(f"[kernel_profile] {out[-1]}", flush=True)
+        del sc, x
+    coo = _coo("rmat", 20)
+    A = SparseOperator.from_coo(coo, PlanSpec(num_devices=1,
+                                              algorithm="sellcs"),
+                                k_hint=1, num_spmvs=500)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        coo.shape[0]).astype(np.float32)).to("cuda")
+    G.gmres(G.shifted(A), b)
+    torch.cuda.synchronize()
+    k1 = SK.sellcs_slots.launches
+    t0 = time.perf_counter()
+    G.gmres(G.shifted(A), b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = SK.sellcs_slots.launches - k1
+    out.append({"path": "gmres", "matrix": "rmat", "scale": 20,
+                "solve_ms": secs * 1e3, "k1_launches": n,
+                "ms_per_launch": secs * 1e3 / max(n, 1)})
+    print(f"[kernel_profile] {out[-1]}", flush=True)
+    del A, coo, b
+    torch.cuda.empty_cache()
+    res = serve.main(["--mode", "spmv", "--matrix", "hhh_like", "--scale",
+                      "64", "--requests", "256", "--max-batch", "32",
+                      "--reps", "2", "--algorithm", "sellcs",
+                      "--device", "cuda"])
+    out.append({"path": "serve A", "matrix": "hhh_like", "scale": 64.0,
+                "batched_ms": res["t_batched"] * 1e3,
+                "sequential_ms": res["t_seq"] * 1e3})
+    print(f"[kernel_profile] {out[-1]}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="k9,k2,k3",
-                    help="comma-separated groups: k9, k2, k3")
-    groups = ap.parse_args(argv).only.split(",")
+    ap.add_argument("--only", default="k9,k2,k3,k1,k8",
+                    help="comma-separated groups: k9, k2, k3, k1, k8, "
+                         "paths")
+    ap.add_argument("--depths", default="",
+                    help="comma-separated K1 item depths to time too")
+    args = ap.parse_args(argv)
+    groups = args.only.split(",")
+    depths = [int(d) for d in args.depths.split(",") if d]
     if not torch.cuda.is_available():
         print("[kernel_profile] needs a CUDA device", file=sys.stderr)
         return 2
     rows = []
-    for name, fn in (("k9", k9_rows), ("k2", k2_rows), ("k3", k3_rows)):
+    for name, fn in (("k9", k9_rows), ("k2", k2_rows), ("k3", k3_rows),
+                     ("k1", lambda: k1_rows(depths)), ("k8", k8_rows),
+                     ("paths", path_rows)):
         if name in groups:
             rows += fn()
     print(json.dumps({"device": torch.cuda.get_device_name(0),

@@ -43,9 +43,9 @@ _L = ctypes.c_longlong
 
 # C entry point -> (library, argtypes); every one returns int
 SIGNATURES = {
-    "sellcs_slots_launch": ("sellcs", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "sellcs_slots_fused_launch": ("sellcs", [_P, _P, _P, _P, _P, _P, _I,
-                                             _I, _I, _P]),
+    "sellcs_slots_launch": ("sellcs", [_P, _P, _P, _P, _P, _P, _I, _P]),
+    "sellcs_slots_fused_launch": ("sellcs", [_P, _P, _P, _P, _P, _P, _P, _I,
+                                             _P]),
     "sellcs_slots_t_launch": ("sellcs", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _P]),
     "merge_spmm_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -71,8 +71,8 @@ class _Shard(NamedTuple):
     cols: torch.Tensor           # int32[w, C]
     slice_ptr: torch.Tensor      # int32[num_slices + 1] — K1/K8
     t_ids: torch.Tensor          # int32[w] — slice ids inside K3's window
-    t_ptr: torch.Tensor          # int32[t_slices + 1] — K3's depth base
-    t_row_len: torch.Tensor      # int32[t_slices * C] — K3's window
+    t_ptr: torch.Tensor          # int32[t_slices + 1] — K1/K8/K3 depth base
+    t_row_len: torch.Tensor      # int32[t_slices * C] — their row_len window
     col_map: Optional[torch.Tensor]    # int32[Ntc] (compact_x only)
     num_slices: int              # K1 slot-space height in slices
     t_first: int                 # first global slice of K3's window
@@ -733,14 +733,17 @@ def _local_slots(sh: _Shard, x: torch.Tensor, *, impl: str, chunk: int,
                  col_map: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One shard's slot partial ``[num_slices*C, kc]``: K1, or K8 with
     ``col_map`` (``x`` the full X), or their plain versions, or the
-    oracle."""
+    oracle. K1/K8 stop each lane at its row's end: the shard's window of
+    ``row_len`` and its depth base (K3's ``t_row_len`` / ``t_ptr``; a
+    merge span that starts mid-slice has a negative base)."""
     if impl == "ref":
         return sellcs_slots_ref(sh.data, sh.cols, sh.t_ids, x,
                                 num_slices=sh.num_slices, chunk=chunk,
                                 col_map=col_map)
     fn = sellcs_slots_plain if impl == "plain" else sellcs_slots
     return fn(sh.data, sh.cols, sh.slice_ptr, x, num_slices=sh.num_slices,
-              chunk=chunk, col_map=col_map)
+              chunk=chunk, col_map=col_map, row_len=sh.t_row_len,
+              depth_ptr=sh.t_ptr)
 
 
 def _local_slots_t(sh: _Shard, xs: torch.Tensor, *, n_out: int, impl: str,

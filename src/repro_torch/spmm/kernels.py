@@ -31,6 +31,7 @@ card: there is no VMEM slab to fit, so only the roofline rule is left
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -42,6 +43,7 @@ from repro_torch.kernels import merge_spmv as _merge
 from repro_torch.kernels.tiling import TiledSparse
 from repro_torch.roofline.analysis import csr_stream_bytes, ridge_intensity
 from .reference import sellcs_slot_x
+from . import slots_plan as _slots
 from .sellcs import SellCS
 
 # plain-version work is chunked over width-rows so its [w, C, k] temporary
@@ -69,14 +71,29 @@ def choose_k_tile(shape: Tuple[int, int], k: int, *,
 # --------------------------------------------------------------------------
 # K1: SELL-C-σ slot-space SpMM
 # --------------------------------------------------------------------------
+def _slot_lengths(row_len: Optional[torch.Tensor], num_slices: int,
+                  chunk: int) -> Optional[torch.Tensor]:
+    """``row_len`` over the whole slot space (slots past its window: 0)."""
+    if row_len is None or row_len.numel() == num_slices * chunk:
+        return row_len
+    lens = torch.zeros(num_slices * chunk, dtype=row_len.dtype,
+                       device=row_len.device)
+    lens[:row_len.numel()] = row_len
+    return lens
+
+
 def sellcs_slots_plain(data: torch.Tensor, cols: torch.Tensor,
                        slice_ptr: torch.Tensor, x: torch.Tensor, *,
                        num_slices: int, chunk: int,
-                       col_map: Optional[torch.Tensor] = None
+                       col_map: Optional[torch.Tensor] = None,
+                       row_len: Optional[torch.Tensor] = None,
+                       depth_ptr: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Plain PyTorch version of K1 (and of K8 with ``col_map``): f32 slot
     sums [num_slices*chunk, k] over the width-row stream (no row
-    permutation applied)."""
+    permutation applied). With ``row_len`` only the real entries are
+    added (depth ``w - depth_ptr[s] < row_len[slot]``, ``depth_ptr``
+    defaulting to ``slice_ptr``), as the kernel walks them."""
     W = int(data.shape[0])
     k = int(x.shape[1])
     dev = x.device
@@ -87,25 +104,89 @@ def sellcs_slots_plain(data: torch.Tensor, cols: torch.Tensor,
     widths = (slice_ptr[1:] - slice_ptr[:-1]).long()
     slice_of = torch.repeat_interleave(
         torch.arange(num_slices, device=dev), widths)
+    lens = _slot_lengths(row_len, num_slices, chunk)
+    if lens is not None:
+        base = slice_ptr[:-1].long().clone()
+        if depth_ptr is not None:
+            nd = min(int(depth_ptr.numel()) - 1, num_slices)
+            base[:nd] = depth_ptr[:nd].long()
     lanes = torch.arange(chunk, device=dev)
     step = max(_PLAIN_CHUNK_ELEMS // max(chunk * k, 1), 1)
     for w0 in range(0, W, step):
         sl = slice(w0, min(w0 + step, W))
-        c = cols[sl].long()
+        s = slice_of[sl]
+        slot = s[:, None] * chunk + lanes[None]                 # [w, C]
+        d, c = data[sl].to(torch.float32), cols[sl].long()
+        if lens is not None:
+            w = torch.arange(sl.start, sl.stop, device=dev)
+            real = (w - base[s])[:, None] < lens[slot].long()
+            d, c, slot = d[real], c[real], slot[real]
         if col_map is not None:
             c = col_map[c].long()
-        contrib = data[sl].to(torch.float32)[:, :, None] * x[c]  # [w, C, k]
-        slot = slice_of[sl][:, None] * chunk + lanes[None]
+        contrib = d[..., None] * x[c]                           # [.., k]
         y.index_add_(0, slot.reshape(-1), contrib.reshape(-1, k))
     return y
+
+
+def _sellcs_slots_launch(plan: _slots.SlotsPlan, data: torch.Tensor,
+                         cols: torch.Tensor, x: torch.Tensor,
+                         y: torch.Tensor,
+                         col_map: Optional[torch.Tensor] = None) -> None:
+    """Launch K1 (K8 with ``col_map``) over ``plan`` (and the ``row_len``
+    it was built from) into ``y``, with the combine kernel's scratch
+    (uncounted: :func:`sellcs_slots` counts its calls)."""
+    k = int(x.shape[1])
+    part = (torch.empty((plan.n_scratch, k), dtype=torch.float32,
+                        device=x.device) if plan.n_scratch else None)
+    tail = (ctypes.addressof(plan.c_args()), x.data_ptr(), y.data_ptr(),
+            0 if part is None else part.data_ptr(), k, _lib.stream_of(x))
+    if col_map is None:
+        fn = "sellcs_slots_launch"
+        _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(), *tail),
+                   fn)
+    else:
+        fn = "sellcs_slots_fused_launch"
+        _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(),
+                                  col_map.data_ptr(), *tail), fn)
+
+
+def _check_stream(plan: _slots.SlotsPlan, data: torch.Tensor,
+                  cols: torch.Tensor, slice_ptr: torch.Tensor) -> None:
+    """Validate the stream's operands before their pointers go to C, once
+    per plan and ``data``/``cols`` pair: the later multiplies of a stream
+    only check X (and ``col_map``)."""
+    row_len, depth_ptr = plan.sources
+    _lib.require(data, "data", torch.float32, 2)
+    _lib.require(cols, "cols", torch.int32, 2)
+    _lib.require(slice_ptr, "slice_ptr", torch.int32, 1)
+    if row_len is not None:
+        _lib.require(row_len, "row_len", torch.int32, 1)
+    if depth_ptr is not None:
+        _lib.require(depth_ptr, "depth_ptr", torch.int32, 1)
+    if data.shape != cols.shape or data.shape[1] != plan.chunk:
+        raise ValueError(f"data/cols must be [W, {plan.chunk}], got "
+                         f"{tuple(data.shape)} / {tuple(cols.shape)}")
+    plan._checked = (data, cols)
 
 
 def sellcs_slots(data: torch.Tensor, cols: torch.Tensor,
                  slice_ptr: torch.Tensor, x: torch.Tensor, *,
                  num_slices: int, chunk: int,
-                 col_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 col_map: Optional[torch.Tensor] = None,
+                 row_len: Optional[torch.Tensor] = None,
+                 depth_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: ``Y[s*C + l, :] = Σ_w data[w, l] * X[cols[w, l], :]`` over the
     width-rows ``w`` of slice ``s`` -> f32[num_slices*chunk, k].
+
+    ``row_len`` (int32 over the slots of the first slices, the rest
+    empty) stops each lane at its row's end, so the padding costs nothing
+    and is not read; ``depth_ptr`` (default ``slice_ptr``) is each
+    slice's depth base, less than ``slice_ptr`` where the stream starts
+    mid-slice (a merge-span shard). Without ``row_len`` every lane walks
+    the slice's width and adds its padding entries (value 0, column 0).
+    The work plan (:mod:`repro_torch.spmm.slots_plan`) is built at the
+    first call and kept on ``slice_ptr``. Deterministic: two launches are
+    bitwise equal.
 
     With ``col_map`` (int32[Ntc]) this is K8: ``cols`` are compact ids and
     each entry reads ``X[col_map[cols[w, l]], :]`` of the full X — the
@@ -114,35 +195,24 @@ def sellcs_slots(data: torch.Tensor, cols: torch.Tensor,
     if x.device.type == "cpu":
         return sellcs_slots_plain(data, cols, slice_ptr, x,
                                   num_slices=num_slices, chunk=chunk,
-                                  col_map=col_map)
-    _lib.require(data, "data", torch.float32, 2)
-    _lib.require(cols, "cols", torch.int32, 2)
-    _lib.require(slice_ptr, "slice_ptr", torch.int32, 1)
+                                  col_map=col_map, row_len=row_len,
+                                  depth_ptr=depth_ptr)
     _lib.require(x, "x", torch.float32, 2)
     if col_map is not None:
         _lib.require(col_map, "col_map", torch.int32, 1)
-    if data.shape != cols.shape or data.shape[1] != chunk:
-        raise ValueError(f"data/cols must be [W, {chunk}], got "
-                         f"{tuple(data.shape)} / {tuple(cols.shape)}")
-    if slice_ptr.shape[0] != num_slices + 1:
-        raise ValueError("slice_ptr must have num_slices + 1 entries")
+    plan = _slots.cached_slots_plan(slice_ptr, num_slices=num_slices,
+                                    chunk=chunk, row_len=row_len,
+                                    depth_ptr=depth_ptr)
+    if plan._checked[0] is not data or plan._checked[1] is not cols:
+        _check_stream(plan, data, cols, slice_ptr)
     k = int(x.shape[1])
     y = torch.empty((num_slices * chunk, k), dtype=torch.float32,
                     device=x.device)
+    _sellcs_slots_launch(plan, data, cols, x, y, col_map)
     if col_map is None:
-        fn = "sellcs_slots_launch"
-        _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(),
-                                  slice_ptr.data_ptr(), x.data_ptr(),
-                                  y.data_ptr(), num_slices, chunk, k,
-                                  _lib.stream_of(x)), fn)
         sellcs_slots.launches += 1
-        return y
-    fn = "sellcs_slots_fused_launch"
-    _lib.check(_lib.entry(fn)(data.data_ptr(), cols.data_ptr(),
-                              col_map.data_ptr(), slice_ptr.data_ptr(),
-                              x.data_ptr(), y.data_ptr(), num_slices, chunk,
-                              k, _lib.stream_of(x)), fn)
-    sellcs_slots.fused_launches += 1
+    else:
+        sellcs_slots.fused_launches += 1
     return y
 
 
@@ -164,17 +234,27 @@ def slice_ptr_of(slice_of: torch.Tensor, num_slices: int) -> torch.Tensor:
 def sellcs_slots_chunk(data: torch.Tensor, cols: torch.Tensor,
                        slice_of: torch.Tensor, x: torch.Tensor, *,
                        slice_start: int, num_slices: int, chunk: int,
-                       col_map: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       col_map: Optional[torch.Tensor] = None,
+                       row_len: Optional[torch.Tensor] = None,
+                       first_depth: int = 0) -> torch.Tensor:
     """K1 (K8 with ``col_map``) over one chunk sub-stream whose ``slice_of``
     is still GLOBAL, rebased to the chunk-local slot space
     ``[num_slices * chunk, k]`` that starts at global slice
     ``slice_start``. The reference clips the padding rows' ids into range;
     the CUDA kernels take a slice pointer instead of ids, so here the
-    stream must be the real prefix (ids nondecreasing, inside the span)."""
+    stream must be the real prefix (ids nondecreasing, inside the span).
+    ``row_len`` (int32[num_slices * chunk], the chunk's slots) stops each
+    lane at its row's end; ``first_depth`` is the depth of the stream's
+    first width-row in its slice (a sub-stream re-dealt mid-slice)."""
     local = slice_of.long() - slice_start
-    return sellcs_slots(data, cols, slice_ptr_of(local, num_slices), x,
-                        num_slices=num_slices, chunk=chunk, col_map=col_map)
+    ptr = slice_ptr_of(local, num_slices)
+    depth_ptr = None
+    if row_len is not None and first_depth and local.numel():
+        depth_ptr = ptr.clone()
+        depth_ptr[int(local[0])] -= int(first_depth)
+    return sellcs_slots(data, cols, ptr, x, num_slices=num_slices,
+                        chunk=chunk, col_map=col_map, row_len=row_len,
+                        depth_ptr=depth_ptr)
 
 
 # --------------------------------------------------------------------------
@@ -313,7 +393,8 @@ def sellcs_spmm(sc: SellCS, x: torch.Tensor, *, k_tile: Optional[int] = None,
         return torch.zeros((m, k), dtype=torch.float32, device=dev)
     slots_fn = sellcs_slots_plain if plain else sellcs_slots
     y_slots = slots_fn(sc.data, sc.cols, sc.slice_ptr, x,
-                       num_slices=sc.num_slices, chunk=sc.chunk)
+                       num_slices=sc.num_slices, chunk=sc.chunk,
+                       row_len=sc.row_len)
     y = torch.zeros((m + 1, k), dtype=torch.float32, device=dev)
     y = y.index_add_(0, sc.row_perm.long(), y_slots)[:m]
     if sym:

@@ -989,3 +989,113 @@ def test_k9_wgmma_wrapper_validates_operands(cuda):
     assert out.dtype == torch.bfloat16 and float(out.abs().max()) == 0.0
     assert TK9.moe_group_matmul_wgmma.launches == before + 1
 
+
+
+# ---------------------------------------------------------------------------
+# K1 / K8 redesigned: work items with a row_len stop and split deep slices
+# ---------------------------------------------------------------------------
+def _k1_stream(cuda, case):
+    """A SELL-C-σ stream: one row of 200,000 entries among short rows,
+    empty slices and zero-width slices (empty rows), or a suite matrix."""
+    if case == "dense_row":
+        m, n = 3000, 200_000
+        rng = np.random.default_rng(7)
+        short = rng.integers(0, 6, m)
+        short[100:400] = 0                       # whole slices of empty rows
+        rows = np.concatenate([np.full(n, 5), np.repeat(np.arange(m),
+                                                        short)])
+        cols = np.concatenate([np.arange(n), rng.integers(0, n,
+                                                          short.sum())])
+        vals = rng.standard_normal(rows.size).astype(np.float32)
+        coo = TM.as_coo((rows, cols, vals, (m, n)), device=cuda)
+        return coo, coo_to_sellcs(coo, c=48)
+    coo = _matrix(cuda, case)
+    return coo, coo_to_sellcs(coo)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8, 32, 33, 64, 65, 128, 129])
+@pytest.mark.parametrize("case", ["dense_row", "mawi_like", "hhh_like"])
+def test_k1_matches_plain_with_and_without_row_len(cuda, case, k):
+    """K1 against its plain version, with ``row_len`` (the padding is not
+    walked) and without (it is, as in the reference), two launches bitwise
+    equal, and the whole multiply against the oracle."""
+    coo, sc = _k1_stream(cuda, case)
+    X = torch.randn((coo.shape[1], k), device=cuda)
+    kw = dict(num_slices=sc.num_slices, chunk=sc.chunk)
+    for rl in (sc.row_len, None):
+        got = TK.sellcs_slots(sc.data, sc.cols, sc.slice_ptr, X,
+                              row_len=rl, **kw)
+        _close(got, TK.sellcs_slots_plain(sc.data, sc.cols, sc.slice_ptr,
+                                          X, row_len=rl, **kw))
+        assert torch.equal(got, TK.sellcs_slots(
+            sc.data, sc.cols, sc.slice_ptr, X, row_len=rl, **kw))
+    _close(sellcs_spmm(sc, X), spmm_ref(coo, X.double()).float())
+
+
+def test_k1_row_len_stop_skips_nonfinite_padding(cuda):
+    """With ``row_len`` a NaN/Inf in X row 0 reaches only the slots whose
+    rows name column 0, as in the plain version with the same mask."""
+    coo, sc = _k1_stream(cuda, "mawi_like")
+    X = torch.randn((coo.shape[1], 8), device=cuda)
+    X[0, :4] = float("nan")
+    X[0, 4:] = float("inf")
+    kw = dict(num_slices=sc.num_slices, chunk=sc.chunk, row_len=sc.row_len)
+    got = TK.sellcs_slots(sc.data, sc.cols, sc.slice_ptr, X, **kw)
+    want = TK.sellcs_slots_plain(sc.data, sc.cols, sc.slice_ptr, X, **kw)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    _close(got[fin], want[fin])
+
+
+def test_k1_plan_is_built_once_and_counts_launches(cuda):
+    """The plan is kept on ``slice_ptr`` and reused; a wrapper call counts
+    one launch, the combine kernel's included."""
+    from repro_torch.spmm import slots_plan as SP
+    coo, sc = _k1_stream(cuda, "dense_row")
+    X = torch.randn((coo.shape[1], 2), device=cuda)
+    kw = dict(num_slices=sc.num_slices, chunk=sc.chunk, row_len=sc.row_len)
+    before = TK.sellcs_slots.launches
+    TK.sellcs_slots(sc.data, sc.cols, sc.slice_ptr, X, **kw)
+    plan = SP.cached_slots_plan(sc.slice_ptr, **kw)
+    assert plan.n_segs >= 1 and plan.deepest >= 200_000
+    TK.sellcs_slots(sc.data, sc.cols, sc.slice_ptr, X, **kw)
+    assert SP.cached_slots_plan(sc.slice_ptr, **kw) is plan
+    assert TK.sellcs_slots.launches == before + 2
+    # the stream is validated once per plan, but other data/cols again
+    with pytest.raises(TypeError):
+        TK.sellcs_slots(sc.data, sc.cols.long(), sc.slice_ptr, X, **kw)
+    with pytest.raises(ValueError):
+        TK.sellcs_slots(sc.data[:, :-1], sc.cols[:, :-1], sc.slice_ptr, X,
+                        **kw)
+    assert TK.sellcs_slots.launches == before + 2
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 33])
+@pytest.mark.parametrize("label", ["row", "merge"])
+def test_k8_equals_k1_on_the_slab_on_mesh_shards(cuda, label, k):
+    """On row and merge-chunk shards (a merge span may start mid-slice:
+    a negative depth base), K1 and K8 with the shard's ``row_len`` and
+    depth base match their plain versions, and K8 on the full X is
+    bitwise K1 on the slab ``X[col_map]``."""
+    from repro_torch.spmm import distributed as TD
+    coo, sc = _k1_stream(cuda, "dense_row")
+    if label == "row":
+        part = TD.partition_sellcs_rows(sc, 3, compact_x=True)
+        shards = part.shards
+    else:
+        part = TD.partition_sellcs_nnz(sc, 3, num_chunks=2, compact_x=True)
+        shards = [sh for sp in part.chunk_plan[1] for sh in sp.shards]
+    X = torch.randn((coo.shape[1], k), device=cuda)
+    for sh in shards:
+        if sh.width_rows == 0:
+            continue
+        kw = dict(num_slices=sh.num_slices, chunk=part.chunk,
+                  row_len=sh.t_row_len, depth_ptr=sh.t_ptr)
+        fused = TK.sellcs_slots(sh.data, sh.cols, sh.slice_ptr, X,
+                                col_map=sh.col_map, **kw)
+        _close(fused, TK.sellcs_slots_plain(sh.data, sh.cols, sh.slice_ptr,
+                                            X, col_map=sh.col_map, **kw))
+        slab = X.index_select(0, sh.col_map)
+        assert torch.equal(fused, TK.sellcs_slots(sh.data, sh.cols,
+                                                  sh.slice_ptr, slab, **kw))
