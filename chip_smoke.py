@@ -15,7 +15,10 @@ shards that all name cuda:0 (``serve --devices 4 --mesh-devices
 cuda:0,cuda:0,cuda:0,cuda:0`` and ``repro_torch.spmm.distributed``),
 serves granite-moe-1b-a400m at full width (``serve --mode lm``:
 prefill + greedy decode with KV caches, the MoE layers through the
-grouped-GEMM kernel K9), shows through the wrappers' launch counters that
+grouped-GEMM kernel K9), serves three tenants through the fleet
+(``serve --mode fleet``, one card and a mesh that loses a position),
+runs the autotuner and PageRank, shows through the wrappers' launch
+counters that
 each path went through its kernels, and prints one JSON line per kernel
 table and a final status line:
 
@@ -132,7 +135,36 @@ Phases:
      whole model's last-token prefill logits and first greedy token on
      the three routes are reported; last, ``torch.profiler`` over one
      prefill and three decode steps (device time by kernel, K9's share,
-     idle share).
+     idle share);
+ 11. multi-tenant fleet serving: ``serve --mode fleet --matrix road_like
+     --scale 8 --tenants 3 --max-batch 32 --requests 192`` (t0 and t2
+     serve road_like, 1,048,576 rows, t2 a plan-cache hit on t0's
+     matrix; t1 hhh_like at the same scale, 131,072 rows), (a) on one
+     card (K1) and (b) over four positions of cuda:0 with ``--compact-x
+     on --gather fused --fail-device auto`` (K8; the last position is
+     lost halfway and every tenant re-dealt over three): per tenant its
+     flush p50/p95/p99 (pre- and post-loss in b), re-deal ms and K1/K8
+     launches, the plan cache's hits and misses (1 and 2) and the run's
+     seconds; the serve run holds every answer against its tenant's
+     oracle itself, and b must launch K8 before and after the loss;
+ 12. the autotuner: ``core.autotune`` at road_like --scale 8, k = 1 and
+     k = 32, over the reference's ``DEFAULT_ALGOS`` and ``sellcs`` at one
+     β (``block_size_for`` of the packed-COO in-block format),
+     ``num_spmvs = 1000``, one candidate per call so that the counters
+     name the kernel each launched (K4 and the carry step, or K2 and the
+     carry step, for parcrs; K1 for sellcs; none for a blocked format,
+     which multiplies through its oracle): convert, multiply and total
+     seconds per candidate, and the break-even of the fastest multiply
+     against parcrs, (convert - convert_parcrs) / (multiply_parcrs -
+     multiply), the paper's "472 multiplies" (0 when that format also
+     converts faster; none when parcrs multiplies fastest); the same for
+     parcrs and sellcs at hhh_like --scale 8; one
+     ``autotune(num_devices=4, k=32)`` call over parcrs and sellcs (a
+     mesh plan runs only SELL-C-σ) and the schedule it picks; then
+     ``repro_torch.examples.pagerank`` at rmat scale 20 (K2 and the carry
+     step before its swap to SELL-C-σ, K1 after: the operator multiplies
+     a vector as a one-column SpMM, as the reference's does; both rank
+     vectors within 1e-5).
 
 Bound: ``bound_ms`` is the larger of the bytes the SpMM function needs
 (CSR values and columns per nonzero, one row offset per row, X read once,
@@ -177,7 +209,8 @@ stdout
 ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
 latency, batcher phases and conversion times; the symmetric, GMRES and
-autograd phases; the mesh phase; the LM phase), the card line, the
+autograd phases; the mesh phase; the LM phase; the fleet and autotune
+phases), the card line, the
 ``kernels`` JSON
 line and the status
 line. K3's ``launches`` there is the sum over the GMRES and autograd
@@ -2321,6 +2354,195 @@ def profile_lm(res, steps: int = 3) -> dict:
     return out
 
 
+# phase 11: the tenants of ``serve --mode fleet`` (t0 and t2 road_like,
+# t1 hhh_like at the same scale; t2 is a plan-cache hit on t0's matrix)
+FLEET_ARGS = ["--mode", "fleet", "--matrix", "road_like", "--tenants",
+              "3", "--max-batch", str(MAIN_K), "--requests", "192"]
+
+
+def fleet_summary(label: str, res, doc, counts) -> dict:
+    """One fleet run's per-tenant flush latency (ms; pre-/post-loss when a
+    position was lost), re-deal ms, launches, the plan cache's hits and
+    misses and the run's seconds."""
+    hists = {(h["name"], h["labels"].get("tenant")): h
+             for h in doc["histograms"] if h["count"]}
+    fleet, front = res["fleet"], res["front"]
+    tenants = {}
+    for t in front.tenants():
+        row = {"matrix_rows": fleet.get(t).shape[0],
+               "plan": fleet.get(t).plan.label,
+               "flushes": front.lane(t).flushes,
+               "slo_violations": front.lane(t).slo_violations,
+               "launches": {ph: c for (tt, ph), c in
+                            res["launches"].items() if tt == t}}
+        for name in ("fleet/flush_s", "fleet/flush_preloss_s",
+                     "fleet/flush_postloss_s", "fleet/redeal_s"):
+            h = hists.get((name, t))
+            if h is not None:
+                row[name[6:]] = {q: h[q] * 1e3 for q in ("p50", "p95",
+                                                          "p99")}
+        tenants[t] = row
+    out = {"run": label, "tenants": tenants,
+           "plan_cache_hits": fleet.stats.plan_cache_hits,
+           "plan_cache_misses": fleet.stats.plan_cache_misses,
+           "redeal_ms": (None if res["redeal_s"] is None
+                         else res["redeal_s"] * 1e3),
+           "seconds": res["seconds"], "launches": counts}
+    print(f"[chip_smoke] fleet {label}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_fleet(scale: str) -> list:
+    """Phase 11: ``serve --mode fleet`` through the entry point, the
+    counts set to 0 just before each run and read just after: (a) one
+    card (K1); (b) four positions of cuda:0 with the fused compact-X
+    gather (K8), the last position lost halfway through. The serve run
+    checks every answer against its tenant's oracle itself."""
+    import torch
+    t_phase = time.perf_counter()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra, kern in (
+                ("a", ["--devices", "1"], "K1"),
+                ("b", ["--devices", str(MESH_P), "--mesh-devices",
+                       ",".join(["cuda:0"] * MESH_P), "--compact-x", "on",
+                       "--gather", "fused", "--fail-device", "auto"],
+                 "K8")):
+            path = os.path.join(tmp, f"fleet_{label}.json")
+            res, counts, doc = run_serve(FLEET_ARGS + ["--scale", scale]
+                                         + extra, path)
+            row = fleet_summary(label, res, doc, counts)
+            if counts[kern] <= 0:
+                raise AssertionError(f"fleet run {label} never launched "
+                                     f"{kern}: {counts}")
+            if (row["plan_cache_hits"], row["plan_cache_misses"]) != (1, 2):
+                raise AssertionError(f"fleet run {label}: plan cache "
+                                     f"{row['plan_cache_hits']} hits, "
+                                     f"{row['plan_cache_misses']} misses")
+            if label == "b":
+                for phase in ("preloss", "postloss"):
+                    n = sum(c[kern] for (t, ph), c in
+                            res["launches"].items() if ph == phase)
+                    if n <= 0:
+                        raise AssertionError(f"fleet run b launched no {kern}"
+                                             f" {phase}")
+                    row[f"{kern}_{phase}"] = n
+            rows.append(row)
+            del res
+            torch.cuda.empty_cache()
+    print(f"[chip_smoke] fleet phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows
+
+
+TUNE_ALGOS = ("parcrs", "csb", "csbh", "bcohc", "bcohch", "mergeb",
+              "sellcs")     # the reference's DEFAULT_ALGOS and sellcs
+
+
+def tune_sweep(coo, name: str, algos, beta: int, k: int, reps: int) -> dict:
+    """``autotune`` over ``algos`` at one k, one candidate per call with
+    the counters set to 0 just before and read just after, and the
+    break-even of the fastest multiply against parcrs."""
+    from repro_torch.core import autotune
+    results, rows = [], []
+    for algo in algos:
+        (_, res), counts = run_counted(lambda: autotune(
+            coo, num_spmvs=1000, algorithms=(algo,), betas=[beta],
+            reps=reps, k=k))
+        r = res[0]
+        results.append(r)
+        kern = [n for n, c in counts.items() if c] or ["oracle"]
+        rows.append({"algorithm": r.algorithm, "beta": r.beta,
+                     "convert_s": r.convert_s, "spmv_s": r.spmv_s,
+                     "total_s": r.total_s, "kernels": kern,
+                     "launches": {n: c for n, c in counts.items() if c}})
+        print(f"[chip_smoke] autotune {name} k={k} {r.algorithm:7s} beta "
+              f"{r.beta} convert_s {r.convert_s:.6f} spmv_s "
+              f"{r.spmv_s:.9f} total_s {r.total_s:.6f} kernels {kern}",
+              flush=True)
+    best = min(results, key=lambda r: r.total_s)
+    fast = min(results, key=lambda r: r.spmv_s)
+    base = next(r for r in results if r.algorithm == "parcrs")
+    gain = base.spmv_s - fast.spmv_s
+    # none: parcrs multiplies fastest; 0: the faster format also
+    # converts faster, so it pays from the first multiply
+    breakeven = (max((fast.convert_s - base.convert_s) / gain, 0.0)
+                 if fast is not base and gain > 0 else None)
+    verdict = ("none (parcrs is the fastest)" if breakeven is None
+               else f"{breakeven} multiplies")
+    print(f"[chip_smoke] autotune {name} k={k}: best at 1000 multiplies "
+          f"{best.algorithm}; fastest multiply {fast.algorithm}; "
+          f"break-even against parcrs {verdict}", flush=True)
+    return {"rows": rows, "best": best.algorithm, "fastest": fast.algorithm,
+            "breakeven_vs_parcrs": breakeven}
+
+
+def run_autotune(scale: float, rmat_scale: int, reps: int) -> dict:
+    """Phase 12: ``core.autotune`` on the card at road_like, k = 1 and
+    k = 32, one candidate per call so that the counters name the kernel
+    each launched (the grid is the same as one call over all of them),
+    and the break-even of the num_spmvs -> inf winner against parcrs;
+    the same for parcrs and sellcs at hhh_like; one
+    ``autotune(num_devices=4, k=32)`` call over parcrs and sellcs; then
+    PageRank (K2 and the carry step before its swap, K1 after)."""
+    import torch
+    from repro_torch.core import IN_BLOCK_PACKED_COO, autotune, block_size_for
+    from repro_torch.data import matrices
+    from repro_torch.examples import pagerank
+    t_phase = time.perf_counter()
+    coo = matrices.as_coo(matrices.test_suite(scale)["road_like"].make(),
+                          device="cuda")
+    beta = block_size_for(coo.shape, in_block_format=IN_BLOCK_PACKED_COO)
+    out = {"matrix": "road_like", "scale": scale, "m": coo.shape[0],
+           "nnz": coo.nnz, "beta": beta, "num_spmvs": 1000, "reps": reps}
+    for k in (1, MAIN_K):
+        out[f"k{k}"] = tune_sweep(coo, "road_like", TUNE_ALGOS, beta, k,
+                                  reps)
+    # a second matrix, the two unblocked candidates only: the break-even
+    # where the converted format may win
+    hhh = matrices.as_coo(matrices.test_suite(scale)["hhh_like"].make(),
+                          device="cuda")
+    out["hhh_like"] = {"m": hhh.shape[0], "nnz": hhh.nnz}
+    for k in (1, MAIN_K):
+        out["hhh_like"][f"k{k}"] = tune_sweep(hhh, "hhh_like",
+                                              ("parcrs", "sellcs"), beta,
+                                              k, reps)
+    del hhh
+    # a mesh plan executes only the SELL-C-σ stream, and the blocked
+    # candidates' conversions are most of the phase: the unblocked two
+    best4, _ = autotune(coo, num_spmvs=1000, algorithms=("parcrs", "sellcs"),
+                        reps=reps, k=MAIN_K, num_devices=MESH_P)
+    out["num_devices_4"] = {
+        "algorithm": best4.algorithm, "schedule": best4.schedule,
+        "num_chunks": best4.num_chunks, "mesh_shape": best4.mesh_shape,
+        "compact_x": best4.compact_x, "gather": best4.gather,
+        "dist_model_s": best4.dist_model_s, "total_s": best4.total_s}
+    print(f"[chip_smoke] autotune num_devices={MESH_P} k={MAIN_K}: "
+          f"{out['num_devices_4']}", flush=True)
+    del coo
+    torch.cuda.empty_cache()
+    out["autotune_seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke] autotune {out['autotune_seconds']:.1f} s",
+          flush=True)
+    # the operator multiplies a vector as a one-column SpMM, as the
+    # reference's does: the merge-path leg runs K2 and the carry step
+    res, counts = run_counted(lambda: pagerank.main(
+        ["--device", "cuda", "--scale", str(rmat_scale)]))
+    for kern in ("K2", "carry", "K1"):
+        if counts[kern] <= 0:
+            raise AssertionError(f"pagerank never launched {kern}")
+    out["pagerank"] = {"scale": rmat_scale, "plans": res["plans"],
+                       "convert_s": res["convert_s"],
+                       "max_abs_diff": float((res["r1"] - res["r2"]).abs()
+                                             .max()),
+                       "launches": counts}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke] pagerank rmat {rmat_scale}: plans {res['plans']}; "
+          f"launches {counts}; autotune phase {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def _csr_parts(coo):
     """(crow, col, val) of the library's CSR of ``coo`` (a baseline only)."""
     from repro_torch.core import coo_to_csr
@@ -2442,6 +2664,14 @@ def main(argv=None) -> int:
 
     # phase 10: LM serving (K9)
     lm_row = run_lm(args.quick, reps, table)
+    torch.cuda.empty_cache()
+
+    # phase 11: multi-tenant fleet serving (K1; K8 before and after a
+    # re-deal)
+    fleet_rows = run_fleet(f"{8.0 / div:g}")
+
+    # phase 12: the autotuner and its break-even, then PageRank
+    tune_row = run_autotune(8.0 / div, 14 if args.quick else 20, reps)
 
     launches = {"K1": counts_a["K1"], "K2": counts_b["K2"],
                 "K3": gmres_row["launches"]["K3"]
@@ -2477,7 +2707,8 @@ def main(argv=None) -> int:
     print(json.dumps({"rows": shape_rows, "serve": serve_rows,
                       "symmetric": sym_row, "gmres": gmres_row,
                       "autograd": grad_row, "blocked": blocked_row,
-                      "mesh": mesh_row, "lm": lm_row}))
+                      "mesh": mesh_row, "lm": lm_row, "fleet": fleet_rows,
+                      "autotune": tune_row}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

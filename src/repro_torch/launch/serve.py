@@ -1,5 +1,4 @@
-"""SpMV serving on one device — the port of ``repro.launch.serve --mode
-spmv``.
+"""SpMV, fleet and LM serving — the port of ``repro.launch.serve``.
 
 Queued single-vector ``A @ x`` requests aggregate into one SpMM per flush
 (matrix stream amortized over the batch), measured against serving them
@@ -36,11 +35,35 @@ list may repeat one device, which runs every shard on it:
       --devices 4 --mesh-devices cuda:0,cuda:0,cuda:0,cuda:0 \
       --compact-x on --gather fused
 
-Runs on ``--device cuda`` (default) with the CUDA kernels; ``--device
-cpu`` runs the same path on the CPU (``--impl plain`` for the kernels'
-plain versions, ``ref``/``auto`` for the oracles; a mesh then needs
-``--mesh-devices cpu,cpu,...``). ``--mode fleet`` comes with a later
-slice.
+Runs on ``--device cuda`` (default; with ``--mesh-devices`` the default
+is the first position's device) with the CUDA kernels; ``--device cpu``
+runs the same path on the CPU (``--impl plain`` for the kernels' plain
+versions, ``ref``/``auto`` for the oracles; a mesh then needs
+``--mesh-devices cpu,cpu,...``).
+
+Fleet mode — ``--mode fleet --tenants N`` serves N tenants from one
+process through a ``repro_torch.spmm.Fleet`` (fingerprint-keyed plan
+cache: the tenants cycle over two matrices, so the third is a cache hit
+that pays no conversion or partition) fronted by a
+``repro_torch.spmm.FleetBatcher`` (one queue per tenant; each flush goes
+to the lane with the highest SLO urgency × batch efficiency under
+``--slo-ms``). One device serves each tenant through K1; ``--devices P``
+partitions each over P mesh positions (K8 with ``--compact-x on --gather
+fused``). ``--fail-device auto`` loses the last position halfway through
+the stream: every mesh tenant's width-row stream is re-dealt over the
+survivors (no conversion) and serving goes on. Every answer, before and
+after the loss, is held against the torch COO oracle of its tenant's
+matrix; a miss raises:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode fleet \
+      --matrix road_like --scale 8 --tenants 3 --max-batch 32 \
+      --requests 192 --devices 4 --mesh-devices \
+      cuda:0,cuda:0,cuda:0,cuda:0 --compact-x on --gather fused \
+      --fail-device auto --metrics fleet.json
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode fleet \
+      --tenants 3 --devices 4 --mesh-devices cpu,cpu,cpu,cpu \
+      --fail-device auto --scale 0.02 --impl plain
 
 LM mode — batched prefill + greedy decode with KV caches, random weights
 from ``--seed``, the port of ``repro.launch.serve``'s LM branch. The MoE
@@ -312,32 +335,18 @@ def serve_spmv(args):
     (``xs``), the batched answers (``answers``: rid -> y) and their ticket
     order (``rids``)."""
     from repro_torch import obs
-    from repro_torch.core import PlanSpec, matrix_stats, resolve_device, spmv
+    from repro_torch.core import PlanSpec, matrix_stats, spmv
     from repro_torch.core.selector import ZERO_CONVERSION_ALGO
     from repro_torch.data import matrices
     from repro_torch.roofline import spmm_arithmetic_intensity
     from repro_torch.spmm import RequestBatcher, SparseOperator
 
-    device = resolve_device(args.device)
     suite = matrices.test_suite(scale=args.scale)
     if args.matrix not in suite:
         raise SystemExit(f"--matrix must be one of {sorted(suite)}")
-    mesh_shape = None
-    if args.mesh:
-        from repro_torch.launch.mesh import parse_mesh_shape
-        mesh_shape = parse_mesh_shape(args.mesh)
-        args.devices = mesh_shape[0] * mesh_shape[1]
-    mesh_devices = (args.mesh_devices.split(",") if args.mesh_devices
-                    else None)
+    mesh_shape, mesh_devices = _mesh_positions(args)
+    device = _serve_device(args)
     if args.devices > 1:
-        have = (len(mesh_devices) if mesh_devices is not None
-                else torch.cuda.device_count())
-        if have < args.devices:
-            raise SystemExit(
-                f"the mesh needs {args.devices} devices but "
-                f"{'--mesh-devices names' if mesh_devices else 'the machine has'}"
-                f" {have}; name them with --mesh-devices (a list may "
-                "repeat one device, e.g. cuda:0,cuda:0,cuda:0,cuda:0)")
         if args.algorithm and args.algorithm != "sellcs":
             raise SystemExit(
                 f"--algorithm {args.algorithm} cannot be served on a mesh: "
@@ -353,18 +362,8 @@ def serve_spmv(args):
     num_spmms = -(-args.requests // args.max_batch)
 
     # the target the migration converts TO (and what --migrate off serves
-    # directly): SELL-C-σ over the requested mesh, --mesh / --chunks /
-    # --compact-x / --gather pinning knobs the selector would sweep
-    compact = {"auto": None, "on": True, "off": False}[args.compact_x]
-    gather = None if args.gather == "auto" else args.gather
-    if args.devices > 1:
-        target_spec = PlanSpec(
-            num_devices=args.devices,
-            mesh_shape=mesh_shape or (args.devices, 1),
-            num_chunks=args.chunks if args.chunks > 0 else None,
-            compact_x=compact, algorithm="sellcs", gather=gather)
-    else:
-        target_spec = PlanSpec(num_devices=1, algorithm="sellcs")
+    # directly)
+    target_spec = _fleet_target_spec(args, mesh_shape)
     if args.migrate != "off":
         initial_spec = PlanSpec(num_devices=1,
                                 algorithm=ZERO_CONVERSION_ALGO)
@@ -485,13 +484,249 @@ def _print_traffic_model(sp, n_touched, stats, args):
               "chunk(s) pipelined under the slice stream")
 
 
+def _serve_device(args) -> torch.device:
+    """``--device``, else the first ``--mesh-devices`` position's device,
+    else cuda."""
+    from repro_torch.core import resolve_device
+    if args.device is None and args.mesh_devices:
+        return resolve_device(args.mesh_devices.split(",")[0])
+    return resolve_device(args.device)
+
+
+def _mesh_positions(args):
+    """The mesh shape ``--mesh`` pins (it overrides ``--devices``) and the
+    ``--mesh-devices`` positions, checked against ``--devices``."""
+    mesh_shape = None
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh_shape
+        mesh_shape = parse_mesh_shape(args.mesh)
+        args.devices = mesh_shape[0] * mesh_shape[1]
+    mesh_devices = (args.mesh_devices.split(",") if args.mesh_devices
+                    else None)
+    if args.devices > 1:
+        have = (len(mesh_devices) if mesh_devices is not None
+                else torch.cuda.device_count())
+        if have < args.devices:
+            raise SystemExit(
+                f"the mesh needs {args.devices} devices but "
+                f"{'--mesh-devices names' if mesh_devices else 'the machine has'}"
+                f" {have}; name them with --mesh-devices (a list may "
+                "repeat one device, e.g. cuda:0,cuda:0,cuda:0,cuda:0)")
+    return mesh_shape, mesh_devices
+
+
+def _fleet_target_spec(args, mesh_shape):
+    """SELL-C-σ over the requested mesh, ``--mesh`` / ``--chunks`` /
+    ``--compact-x`` / ``--gather`` pinning knobs the selector would
+    sweep; one device without ``--devices``. Every fleet tenant's spec,
+    and the spmv mode's target."""
+    from repro_torch.core import PlanSpec
+    compact = {"auto": None, "on": True, "off": False}[args.compact_x]
+    gather = None if args.gather == "auto" else args.gather
+    if args.devices > 1:
+        return PlanSpec(num_devices=args.devices,
+                        mesh_shape=mesh_shape or (args.devices, 1),
+                        num_chunks=args.chunks if args.chunks > 0 else None,
+                        compact_x=compact, algorithm="sellcs",
+                        gather=gather)
+    return PlanSpec(num_devices=1, algorithm="sellcs")
+
+
+def _sellcs_launches():
+    """K1's and K8's launch counters (``spmm.kernels.sellcs_slots``)."""
+    from repro_torch.spmm.kernels import sellcs_slots
+    return {"K1": sellcs_slots.launches, "K8": sellcs_slots.fused_launches}
+
+
+def serve_fleet(args) -> dict:
+    """Multi-tenant serving with a device-loss re-deal: ``--tenants``
+    tenants over a :class:`repro_torch.spmm.Fleet` (the tenants cycle over
+    ``--matrix`` and a second matrix, so from the third on a registration
+    is a plan-cache hit) fronted by a :class:`repro_torch.spmm.
+    FleetBatcher`. ``--fail-device`` (a position of the mesh; ``auto`` =
+    the last) is lost once half the requests are served: every mesh
+    tenant is re-dealt over the survivors and serving goes on. Every
+    answer is held against its tenant's COO oracle (rtol = atol = 2e-4);
+    a miss raises.
+
+    ``--max-pending`` bounds each lane: a submit that would pass it waits
+    for a flush, which this single-threaded loop runs first (the scheduler's
+    pick), so nothing blocks forever. Flush latency (synchronized on the
+    card) lands in ``fleet/flush_s``, split ``fleet/flush_preloss_s`` /
+    ``fleet/flush_postloss_s`` around the loss, and the re-deal in
+    ``fleet/redeal_s``. Returns the answers and sent vectors per
+    ``(tenant, rid)``, the fleet, the front end, the re-deal seconds, the
+    K1/K8 launches per tenant and phase, and the run's seconds."""
+    from repro_torch import obs
+    from repro_torch.data import matrices
+    from repro_torch.spmm import Fleet, FleetBatcher, spmm_coo
+
+    t_run = time.perf_counter()
+    if args.tenants < 1:
+        raise SystemExit("--tenants must be >= 1")
+    suite = matrices.test_suite(scale=args.scale)
+    if args.matrix not in suite:
+        raise SystemExit(f"--matrix must be one of {sorted(suite)}")
+    # two distinct matrices cycled over the tenants: same-matrix tenants
+    # hit the plan cache, the other matrix shows the fleet multiplexes
+    # independent operators
+    alt = "hhh_like" if args.matrix != "hhh_like" else "road_like"
+    names = [args.matrix, alt]
+    mesh_shape, mesh_devices = _mesh_positions(args)
+    per_tenant = max(1, args.requests // args.tenants)
+    fail_device = None
+    if args.fail_device is not None:
+        if args.devices <= 1:
+            raise SystemExit("--fail-device needs a --devices mesh")
+        fail_device = (args.devices - 1 if args.fail_device == "auto"
+                       else int(args.fail_device))
+        if not 0 <= fail_device < args.devices:
+            raise SystemExit(f"--fail-device must be a mesh position in "
+                             f"0..{args.devices - 1}")
+    device = _serve_device(args)
+    positions = mesh_devices or [torch.device("cuda", i)
+                                 for i in range(args.devices)]
+
+    reg = None
+    if args.metrics:
+        reg = obs.install(obs.MetricRegistry(
+            backend=device.type, mode="fleet", matrix=args.matrix,
+            devices=args.devices, max_batch=args.max_batch,
+            tenants=args.tenants, slo_ms=args.slo_ms, requests=per_tenant,
+            fail_device="" if fail_device is None else fail_device))
+
+    spec = _fleet_target_spec(args, mesh_shape)
+    fleet = Fleet(impl=args.impl, devices=positions[:args.devices])
+    front = FleetBatcher()
+    coos = {}
+    for i in range(args.tenants):
+        tenant = f"t{i}"
+        coos[tenant] = matrices.as_coo(suite[names[i % len(names)]].make(),
+                                       device=device)
+        t0 = time.perf_counter()
+        op = fleet.register(tenant, coos[tenant], spec,
+                            k_hint=args.max_batch,
+                            num_spmvs=-(-per_tenant // args.max_batch))
+        front.add_tenant(tenant, op, max_batch=args.max_batch,
+                         slo_s=args.slo_ms / 1e3,
+                         max_pending=args.max_pending or None,
+                         overflow="block")
+        print(f"[serve-fleet] {tenant}: {names[i % len(names)]} "
+              f"m={op.shape[0]} plan={op.plan.label} registered in "
+              f"{time.perf_counter() - t0:.3f} s, builds="
+              f"(sellcs={op.stats.sellcs_builds}, "
+              f"partition={op.stats.partition_builds})")
+    print(f"[serve-fleet] plan cache: {fleet.stats.plan_cache_hits} hits, "
+          f"{fleet.stats.plan_cache_misses} misses over "
+          f"{fleet.stats.registered} registrations")
+
+    rng = np.random.default_rng(args.seed)
+    total = per_tenant * args.tenants
+    state = {"served": 0, "lost": False, "redeal_s": None}
+    results = {}                             # (tenant, rid) -> y
+    launches = {}                            # (tenant, phase) -> counts
+
+    def flush_one():
+        if (fail_device is not None and not state["lost"]
+                and state["served"] >= total // 2):
+            t0 = time.perf_counter()
+            redone = fleet.handle_device_loss([fail_device])
+            _sync(device)
+            state["redeal_s"] = time.perf_counter() - t0
+            state["lost"] = True
+            print(f"[serve-fleet] position {fail_device} lost after "
+                  f"{state['served']}/{total} served: re-dealt "
+                  f"{len(redone)} tenant plan(s) over "
+                  f"{args.devices - 1} survivors in "
+                  f"{state['redeal_s'] * 1e3:.1f} ms")
+        before = _sellcs_launches()
+        t0 = time.perf_counter()
+        tenant, out = front.flush_next()
+        _sync(device)
+        dt = time.perf_counter() - t0
+        phase = "postloss" if state["lost"] else "preloss"
+        acc = launches.setdefault((tenant, phase), {"K1": 0, "K8": 0})
+        for key, v in _sellcs_launches().items():
+            acc[key] += v - before[key]
+        state["served"] += len(out)
+        for rid, y in out.items():
+            results[(tenant, rid)] = y
+        fleet.observe_flush(tenant, dt)
+        if reg is not None:
+            lab = {"tenant": tenant}
+            reg.histogram("fleet/flush_s", lab).observe(dt)
+            reg.histogram(f"fleet/flush_{phase}_s", lab).observe(dt)
+
+    sent = {}                                # (tenant, rid) -> x
+    for _ in range(per_tenant):
+        for i in range(args.tenants):
+            tenant = f"t{i}"
+            x = torch.from_numpy(rng.standard_normal(
+                coos[tenant].shape[1]).astype(np.float32)).to(device)
+            while (args.max_pending
+                   and front.lane(tenant).batcher.pending
+                   >= args.max_pending):
+                flush_one()
+            sent[(tenant, front.submit(tenant, x))] = x
+    while front.total_pending:
+        flush_one()
+
+    # the no-drop and correctness contract: every queued request answered,
+    # every answer equal to its tenant's COO oracle, after the loss too
+    if len(results) != total:
+        raise AssertionError(f"served {len(results)} of {total} requests")
+    for tenant, coo in coos.items():
+        keys = [key for key in sent if key[0] == tenant]
+        for j in range(0, len(keys), args.max_batch):
+            chunk = keys[j:j + args.max_batch]
+            want = spmm_coo(coo, torch.stack([sent[key] for key in chunk],
+                                             dim=1))
+            got = torch.stack([results[key] for key in chunk], dim=1)
+            torch.testing.assert_close(got, want.to(got.dtype), rtol=2e-4,
+                                       atol=2e-4)
+    print(f"[serve-fleet] {total} requests served across "
+          f"{args.tenants} tenants, all oracle-checked"
+          + (" (incl. post-loss traffic)" if state["lost"] else ""))
+
+    for i in range(args.tenants):
+        tenant = f"t{i}"
+        lane = front.lane(tenant)
+        line = (f"[serve-fleet] {tenant}: served={lane.served} "
+                f"flushes={lane.flushes} "
+                f"slo_violations={lane.slo_violations} launches "
+                + ", ".join(f"{ph} " + " ".join(
+                    f"{k}={v}" for k, v in launches[(tenant, ph)].items())
+                    for ph in ("preloss", "postloss")
+                    if (tenant, ph) in launches))
+        if reg is not None:
+            for name in ("fleet/flush_s", "fleet/flush_preloss_s",
+                         "fleet/flush_postloss_s"):
+                h = reg.histogram(name, {"tenant": tenant})
+                if h.count and (state["lost"] or name == "fleet/flush_s"):
+                    p = h.percentiles()
+                    line += (f" | {name[6:]} p50 {p['p50'] * 1e3:.2f} ms "
+                             f"p95 {p['p95'] * 1e3:.2f} ms "
+                             f"p99 {p['p99'] * 1e3:.2f} ms")
+        print(line)
+    seconds = time.perf_counter() - t_run
+    print(f"[serve-fleet] run {seconds:.2f} s")
+    if reg is not None:
+        reg.dump(args.metrics)
+        print(f"[serve-fleet] metrics -> {args.metrics}")
+        obs.uninstall()
+    return {"answers": results, "sent": sent, "coos": coos,
+            "fleet": fleet, "front": front, "redeal_s": state["redeal_s"],
+            "launches": launches, "seconds": seconds}
+
+
 def build_parser() -> argparse.ArgumentParser:
     from repro_torch.core.convert import ALGORITHM_SPECS
     ap = argparse.ArgumentParser(
         description="SpMV serving on one device or a mesh, or LM serving "
                     "(repro_torch port)")
-    ap.add_argument("--mode", choices=("lm", "spmv"), default="lm",
-                    help="lm (default, as the reference's serve) or spmv")
+    ap.add_argument("--mode", choices=("lm", "spmv", "fleet"), default="lm",
+                    help="lm (default, as the reference's serve), spmv or "
+                         "fleet")
     ap.add_argument("--matrix", default="mawi_like")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=32)
@@ -533,8 +768,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "their plain PyTorch versions; ref = the oracles "
                          "(lm: the per-expert MoE product); auto = kernel "
                          "on cuda, ref on cpu")
-    ap.add_argument("--device", default="cuda",
-                    help="device to serve on (cuda or cpu)")
+    ap.add_argument("--device", default=None,
+                    help="device to serve on (cuda or cpu; default cuda, "
+                         "or the first --mesh-devices position's device)")
     ap.add_argument("--migrate", default="off",
                     choices=("auto", "off", "force"),
                     help="online break-even format migration from "
@@ -546,6 +782,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reps", type=int, default=5,
                     help="min-of-N repetitions for the headline timing")
     ap.add_argument("--seed", type=int, default=0)
+    # fleet-mode arguments
+    ap.add_argument("--tenants", type=int, default=3,
+                    help="fleet mode: number of tenants; they cycle over "
+                         "two matrices, so >= 3 tenants hit the plan cache")
+    ap.add_argument("--slo-ms", type=float, default=50.0, dest="slo_ms",
+                    help="fleet mode: per-request latency budget of the "
+                         "flush scheduler (urgency = oldest wait / budget)")
+    ap.add_argument("--fail-device", default=None, dest="fail_device",
+                    help="fleet mode: lose this mesh position halfway "
+                         "through the stream ('auto' = the last) and "
+                         "re-deal its spans over the survivors")
+    ap.add_argument("--max-pending", type=int, default=0,
+                    dest="max_pending",
+                    help="fleet mode: per-tenant queue bound (0 = "
+                         "unbounded); a submit past it waits for a flush")
     # lm-mode arguments
     ap.add_argument("--arch", default=None,
                     help="lm mode: architecture id (repro_torch.configs)")
@@ -644,6 +895,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.mode == "lm":
         return serve_lm(args)
+    if args.mode == "fleet":
+        return serve_fleet(args)
     return serve_spmv(args)
 
 

@@ -5,10 +5,11 @@ from .analysis import (HBM_BW, NVLINK_BW, PEAK_FLOPS_FP32,
                        spmm_arithmetic_intensity,
                        spmm_distributed_collective_s,
                        spmm_distributed_gather_s, spmm_distributed_time,
+                       spmm_roofline_gflops,
                        spmm_distributed_traffic, spmm_touched_fraction)
 
 __all__ = ["analysis", "HBM_BW", "NVLINK_BW", "PEAK_FLOPS_FP32",
            "csr_stream_bytes", "device_properties", "ridge_intensity", "spmm_arithmetic_intensity",
            "spmm_distributed_traffic", "spmm_distributed_time",
            "spmm_distributed_collective_s", "spmm_distributed_gather_s",
-           "spmm_touched_fraction"]
+           "spmm_touched_fraction", "spmm_roofline_gflops"]

@@ -66,6 +66,16 @@ def spmm_arithmetic_intensity(nnz: int, m: int, n: int, k: int,
     return flops / max(traffic, 1)
 
 
+def spmm_roofline_gflops(ai: float, peak_flops: float = PEAK_FLOPS_FP32,
+                         hbm_bw: float = HBM_BW) -> float:
+    """Attainable GFLOP/s at arithmetic intensity ``ai``: the lower of
+    the peak and ``ai`` × the memory rate. The defaults are the H100's
+    float32 peak and HBM rate (data sheet), the rates this package's SpMM
+    kernels run at; the reference's defaults are a TPU's bf16 peak and
+    HBM rate, so pass both to compare the two."""
+    return min(peak_flops, ai * hbm_bw) / 1e9
+
+
 def spmm_touched_fraction(n: int, nnz: int, num_devices: int = 1) -> float:
     """Modelled fraction of the ``n`` X rows one data shard's compacted
     gather reads: min(nnz / P, n) / n."""

@@ -9,9 +9,12 @@ Layers (one module each, mirroring ``repro.spmm``):
                  CSR) and K6 (the tiled blocked formats)
   ``distributed`` the row-band and merge-span schedules over a device mesh
   ``batching``   request batching for the serve path (k SpMVs -> 1 SpMM)
+                 and the multi-tenant ``FleetBatcher``
   ``operator``   SparseOperator: the partition-once/multiply-many handle
                  with an atomic plan swap (online format migration), its
                  transpose view and the differentiable ``sparse_matmul``
+  ``fleet``      Fleet: many tenants' operators behind one plan cache,
+                 with the device-loss re-deal
 
 SpMV is the k = 1 special case throughout; ``repro_torch.core.spmv`` is
 the single-vector entry point.
@@ -25,7 +28,8 @@ import torch
 from repro_torch.core.formats import COO, CSR, BlockedSparse
 from repro_torch.kernels.tiling import TiledSparse
 from . import reference
-from .batching import RequestBatcher, SpmvRequest, batch_spmv
+from .batching import (FleetBatcher, QueueFull, RequestBatcher,
+                       SpmvRequest, batch_spmv)
 from .distributed import (ShardedSellCS, partition_sellcs_nnz,
                           partition_sellcs_rows, rechunk_sellcs,
                           redeal_sellcs, spmm_merge_distributed,
@@ -36,6 +40,7 @@ from .operator import (OperatorStats, RealizedPlan, SparseOperator,
 from .reference import (spmm_blocked, spmm_coo, spmm_coo_t, spmm_csr,
                         spmm_ref, spmm_sellcs, spmm_sellcs_t)
 from .sellcs import SellCS, coo_to_sellcs
+from .fleet import Fleet, FleetStats
 
 IMPLS = ("auto", "ref", "kernel", "plain")
 
@@ -106,7 +111,8 @@ __all__ = [
     "spmm_ref", "spmm_coo", "spmm_csr", "spmm_blocked", "spmm_sellcs",
     "spmm_sellcs_t",
     "spmm_coo_t", "reference",
-    "RequestBatcher", "SpmvRequest", "batch_spmv",
+    "RequestBatcher", "SpmvRequest", "batch_spmv", "FleetBatcher",
+    "QueueFull", "Fleet", "FleetStats",
     "ShardedSellCS", "partition_sellcs_rows", "partition_sellcs_nnz",
     "rechunk_sellcs", "redeal_sellcs",
     "spmm_row_distributed", "spmm_merge_distributed",

@@ -19,10 +19,12 @@ device mesh (``repro_torch.spmm.distributed``): the joint schedule × mesh
 ``core.select_distributed`` under the spec's pins, and the mesh from
 ``repro_torch.launch.mesh`` over the operator's ``devices`` (default: the
 machine's CUDA cards; a list may repeat a device). Convert-time artifacts
-are cached per operator (the SELL-C-σ stream and each base partition),
-so a swap that changes only the chunk depth re-bakes the span plan
-(``rechunk_sellcs``) instead of repartitioning, and ``shrink_to``
-re-deals the current partition over fewer devices without converting.
+(the SELL-C-σ stream and each base partition) are cached per operator, or
+shared among the operators of one matrix through ``cache=`` (the fleet's
+plan cache), so a swap that changes only the chunk depth re-bakes the
+span plan (``rechunk_sellcs``) instead of repartitioning, and
+``shrink_to`` re-deals the current partition over fewer devices without
+converting.
 """
 from __future__ import annotations
 
@@ -172,7 +174,8 @@ class SparseOperator:
     """
 
     def __init__(self, coo: COO, plan=None, *, impl: str = "auto",
-                 k_hint: int = 32, num_spmvs: int = 1000,
+                 k_hint: int = 32, num_spmvs: int = 1000, feedback=None,
+                 cache: Optional[_PlanCache] = None,
                  devices: Optional[Sequence] = None):
         self._coo = coo
         self._mstats = matrix_stats(coo)
@@ -180,26 +183,33 @@ class SparseOperator:
         self._k_hint = max(int(k_hint), 1)
         self._num_spmvs = num_spmvs
         self._devices = None if devices is None else list(devices)
-        self._cache = _PlanCache()
+        self._cache = cache if cache is not None else _PlanCache()
         self._lock = threading.Lock()
         self._build_lock = threading.Lock()
         self.stats = OperatorStats()
         if isinstance(plan, RealizedPlan):
+            # the fleet's plan-cache hit: installed as-is, no conversion,
+            # no partition, no selection
             self._plan = plan
         else:
-            self._plan = self.realize(plan or PlanSpec())
+            self._plan = self.realize(plan or PlanSpec(), feedback=feedback)
 
     @classmethod
     def from_coo(cls, coo: COO, plan=None, *, impl: str = "auto",
-                 k_hint: int = 32, num_spmvs: int = 1000,
+                 k_hint: int = 32, num_spmvs: int = 1000, feedback=None,
+                 cache: Optional[_PlanCache] = None,
                  devices: Optional[Sequence] = None) -> "SparseOperator":
         """Build the handle and realize its initial plan. ``plan`` is a
         :class:`PlanSpec` (None = single device, format chosen by
         ``core.select`` for ``k_hint`` right-hand sides amortized over
         ``num_spmvs`` multiplies) or an already-built :class:`RealizedPlan`,
-        installed as-is. ``devices`` are the mesh plans' devices."""
+        installed as-is. ``feedback`` (a ``ResidualLedger``) reaches the
+        mesh plan's ``select_distributed``; ``cache`` shares convert-time
+        artifacts (SELL-C-σ streams, base partitions) among operators of
+        the same matrix; ``devices`` are the mesh plans' devices."""
         return cls(coo, plan, impl=impl, k_hint=k_hint,
-                   num_spmvs=num_spmvs, devices=devices)
+                   num_spmvs=num_spmvs, feedback=feedback, cache=cache,
+                   devices=devices)
 
     # -- read side ---------------------------------------------------------
     @property
@@ -256,6 +266,19 @@ class SparseOperator:
         swaps show through and ``op.T.T is op``."""
         return TransposedOperator(self)
 
+    def storage_bytes(self) -> int:
+        """Bytes the installed plan keeps resident: the partitioned stream
+        on a mesh, the converted format off one (the COO triplet estimate
+        for a format that reports none). The fleet's ``max_bytes`` budget
+        sums this."""
+        rp = self._plan
+        for mat in (rp.matrix, rp.single):
+            fn = getattr(mat, "storage_bytes", None)
+            if fn is not None:
+                return int(fn())
+        coo = self._coo
+        return int(8 * coo.nnz + coo.nnz * coo.data.element_size())
+
     # -- write side --------------------------------------------------------
     def realize(self, spec: PlanSpec, feedback=None) -> RealizedPlan:
         """Build an executable plan for ``spec`` WITHOUT installing it —
@@ -279,11 +302,12 @@ class SparseOperator:
                     self.stats.sellcs_builds += 1
             return plan
 
-    def swap(self, new_plan) -> RealizedPlan:
+    def swap(self, new_plan, feedback=None) -> RealizedPlan:
         """Atomically install ``new_plan`` (a :class:`RealizedPlan`, or a
-        :class:`PlanSpec` realized on the spot); returns it."""
+        :class:`PlanSpec` realized on the spot with ``feedback``); returns
+        it."""
         if isinstance(new_plan, PlanSpec):
-            new_plan = self.realize(new_plan)
+            new_plan = self.realize(new_plan, feedback=feedback)
         if not isinstance(new_plan, RealizedPlan):
             raise TypeError("swap takes a RealizedPlan or PlanSpec, got "
                             f"{type(new_plan).__name__}")
@@ -298,9 +322,12 @@ class SparseOperator:
         """Device-loss path: re-deal the current mesh plan's width-row
         stream over ``devices`` (the survivors) and install the shrunken
         plan. The stream is rebuilt from the shards (``redeal_sellcs``:
-        no σ-sort, no conversion); the model axis keeps its width and the
-        data axis absorbs the loss. Returns the installed plan."""
+        no σ-sort, no conversion); the mesh follows
+        ``runtime.elastic.largest_feasible_mesh`` (the model axis keeps its
+        width, the data axis absorbs the loss). Returns the installed
+        plan."""
         from repro_torch.launch.mesh import make_spmm_mesh
+        from repro_torch.runtime.elastic import largest_feasible_mesh
         from repro_torch.spmm.distributed import redeal_sellcs
         rp = self._plan
         sp = rp.spec
@@ -309,10 +336,7 @@ class SparseOperator:
                 "shrink_to needs a distributed plan; the current plan is "
                 f"single-device ({rp.label!r})")
         devices = list(devices)
-        _, pm = sp.mesh_shape
-        pd = len(devices) // pm
-        if pd < 1:
-            raise ValueError("fewer devices than one model replica")
+        pd, pm = largest_feasible_mesh(len(devices), sp.mesh_shape[1])
         nc = int(num_chunks) if num_chunks is not None else (sp.num_chunks
                                                             or 1)
         t0 = time.perf_counter()

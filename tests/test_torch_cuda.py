@@ -1099,3 +1099,57 @@ def test_k8_equals_k1_on_the_slab_on_mesh_shards(cuda, label, k):
         slab = X.index_select(0, sh.col_map)
         assert torch.equal(fused, TK.sellcs_slots(sh.data, sh.cols,
                                                   sh.slice_ptr, slab, **kw))
+
+
+def test_fleet_k8_path_before_and_after_a_redeal(cuda):
+    """A fleet over four positions of the card: the fused compact-X
+    gather launches K8 before and after a position is lost, a cache-hit
+    tenant pays no build, and every answer matches the oracle."""
+    from repro_torch.core import PlanSpec
+    from repro_torch.spmm import Fleet
+    coo = _matrix(cuda, "road_like", 0.05)
+    fleet = Fleet(devices=["cuda:0"] * 4)
+    spec = PlanSpec(num_devices=4, mesh_shape=(4, 1), compact_x=True,
+                    gather="fused")
+    op = fleet.register("t0", coo, spec, k_hint=8)
+    hit = fleet.register("t1", _matrix(cuda, "road_like", 0.05), spec,
+                         k_hint=8)
+    assert hit.plan is op.plan
+    assert (hit.stats.sellcs_builds, hit.stats.partition_builds) == (0, 0)
+    X = torch.randn((coo.shape[1], 8), device=cuda)
+    want = spmm_ref(coo, X)
+    for lost in (False, True):
+        if lost:
+            assert sorted(fleet.handle_device_loss([3])) == ["t0", "t1"]
+            assert op.spec.num_devices == 3 and hit.plan is op.plan
+        before = TK.sellcs_slots.fused_launches
+        _close(op @ X, want)
+        _close(hit @ X, want)
+        assert TK.sellcs_slots.fused_launches > before
+
+
+@pytest.mark.parametrize("k", [1, 32])
+def test_autotune_candidates_on_the_card(cuda, k):
+    """``autotune`` on the card: the candidate grid and its best, and each
+    candidate's answer, through the route it is timed on (``impl="auto"``:
+    K4/K2 and the carry step, K1, a blocked oracle), against the
+    oracle."""
+    from repro_torch.core import autotune, convert, spmv
+    algos = ("parcrs", "csb", "bcohch", "mergeb", "sellcs")
+    coo = _matrix(cuda, "road_like", 0.05)
+    best, res = autotune(coo, num_spmvs=100, reps=2, algorithms=algos,
+                         betas=[256], k=k)
+    assert [r.algorithm for r in res] == list(algos)
+    assert best.total_s == min(r.total_s for r in res)
+    X = torch.randn((coo.shape[1], k), device=cuda)
+    want = spmm_ref(coo, X)
+    for algo in algos:
+        spec = ALGORITHM_SPECS[algo]
+        kw = {"beta": 256} if spec.blocked else {}
+        if spec.scheduling == "static_rows":
+            kw["num_bands"] = 8
+        mat = convert(coo, algo, **kw)
+        if k == 1:
+            _close(spmv(mat, X[:, 0]), want[:, 0])
+        else:
+            _close(spmm(mat, X), want)
