@@ -48,10 +48,20 @@ Phases:
      oracle; on hhh_like at k = 32, where K3's time goes
      (``k3_breakdown``: K3 in 1, 2, 3, 4, 6 and 8 column bands, each
      held against the plain answer, the zeroing of Y, and one pass into
-     a Y folded to a quarter of L2, whose adds all hit L2);
+     a Y folded to a quarter of L2, whose adds all hit L2); the merge
+     multiply as its user calls it, ``kernels.ops.merge_spmv`` at k = 1
+     and ``csr_spmm`` at every k (one C entry call: the memset of Y, K4
+     or K2, and the carry step launched as its programmatic dependent),
+     held bitwise against the two-call path (the partials wrapper, then
+     the standalone carry step), two calls bitwise equal, within the
+     tolerance of the plain version, both paths timed with their
+     ``launch_breakdown``; the carry step's own device time (queued
+     behind a sleeping kernel) beside ``index_add_``'s;
   3. serve path A: --algorithm sellcs (K1), one flush checked against
      the torch oracle;
-  4. serve path B: --migrate force (K2, K4, carry step, one plan swap);
+  4. serve path B: --migrate force (K2, K4, carry step, one plan swap;
+     every K2 and K4 launch from one fused C entry call with its carry
+     step);
   5. symmetric: road_like --scale 8 made symmetric (A + A^T, 1,048,576
      rows) and stored one-triangle; the K1 + K3 combine for op N and op T
      against the oracle of the full matrix, and its storage against the
@@ -320,10 +330,21 @@ def counters():
             "K9w": MG.moe_group_matmul_wgmma}
 
 
+def fused_entries():
+    """The merge multiplies' one-call wrappers, whose ``.calls`` count
+    their C entry calls (each launches K4 or K2 and the carry step)."""
+    from repro_torch.kernels import merge_spmv as MS
+    from repro_torch.spmm import kernels as SK
+    return {"merge_spmv_calls": MS.merge_spmv_fused,
+            "merge_spmm_calls": SK.merge_spmm_fused}
+
+
 def reset_counts():
     from repro_torch.spmm import kernels as SK
     for w in counters().values():
         w.launches = 0
+    for w in fused_entries().values():
+        w.calls = 0
     SK.sellcs_slots.fused_launches = 0
 
 
@@ -331,6 +352,7 @@ def read_counts():
     from repro_torch.spmm import kernels as SK
     out = {name: int(w.launches) for name, w in counters().items()}
     out["K8"] = int(SK.sellcs_slots.fused_launches)
+    out.update({name: int(w.calls) for name, w in fused_entries().items()})
     return out
 
 
@@ -415,7 +437,42 @@ PREV_MS = {("road_like/csb", MAIN_K, "K6"): 4.955,
            ("mawi_like", 32, "K1"): 54.82, ("mawi_like", 33, "K1"): 52.28,
            ("road_like", 1, "K1"): 0.0415, ("road_like", 8, "K1"): 0.1000,
            ("road_like", 32, "K1"): 0.3310,
-           ("road_like", 33, "K1"): 0.3557}
+           ("road_like", 33, "K1"): 0.3557,
+           # the carry step before its redesign (its own wrapper, 5 calls
+           # host-paced; the parent design's final chip_smoke.py run)
+           ("hhh_like", 1, "carry"): 0.0145, ("hhh_like", 8, "carry"): 0.0220,
+           ("hhh_like", 16, "carry"): 0.0226,
+           ("hhh_like", 32, "carry"): 0.0201,
+           ("hhh_like", 33, "carry"): 0.0259,
+           ("mawi_like", 1, "carry"): 0.0195,
+           ("mawi_like", 8, "carry"): 0.0269,
+           ("mawi_like", 16, "carry"): 0.0278,
+           ("mawi_like", 32, "carry"): 0.0275,
+           ("mawi_like", 33, "carry"): 0.0259,
+           ("road_like", 1, "carry"): 0.0165,
+           ("road_like", 8, "carry"): 0.0133,
+           ("road_like", 16, "carry"): 0.0203,
+           ("road_like", 32, "carry"): 0.0162,
+           ("road_like", 33, "carry"): 0.0143,
+           # the merge multiply through its entry points before the carry
+           # step's redesign (two host calls: the partials wrapper, then
+           # the carry step), events ms at the host's pace, the mean of
+           # two runs of kernel_profile.py --only merge on the parent tree
+           ("hhh_like", 1, "merge_spmv"): 0.1331,
+           ("hhh_like", 1, "csr_spmm"): 0.1953,
+           ("hhh_like", 8, "csr_spmm"): 0.4225,
+           ("hhh_like", 32, "csr_spmm"): 0.6654,
+           ("hhh_like", 33, "csr_spmm"): 1.0596,
+           ("mawi_like", 1, "merge_spmv"): 0.0465,
+           ("mawi_like", 1, "csr_spmm"): 0.0508,
+           ("mawi_like", 8, "csr_spmm"): 0.0633,
+           ("mawi_like", 32, "csr_spmm"): 0.1012,
+           ("mawi_like", 33, "csr_spmm"): 0.1406,
+           ("road_like", 1, "merge_spmv"): 0.0597,
+           ("road_like", 1, "csr_spmm"): 0.0691,
+           ("road_like", 8, "csr_spmm"): 0.1410,
+           ("road_like", 32, "csr_spmm"): 0.2332,
+           ("road_like", 33, "csr_spmm"): 0.3757}
 # K8 per hhh_like row shard before its redesign (the same run)
 PREV_K8_MS = (0.2301, 0.2249, 0.2255, 0.2250)
 # K4 and K5 take tens of microseconds: they and their library calls are
@@ -459,7 +516,8 @@ def launch_breakdown(fn, reps: int = SHORT_REPS) -> dict:
                      getattr(e, "self_cuda_time_total", 0.0))
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             name = next((k for k in ("tiled_spmv_kernel", "spmv_prepass",
-                                     "merge_spmv_kernel", "sellcs_items",
+                                     "merge_spmv_kernel", "merge_partials",
+                                     "merge_carry_fixup", "sellcs_items",
                                      "sellcs_combine", "csrmv", "spmv",
                                      "Fill", "fill")
                          if k in e.key), e.key[:48])
@@ -475,6 +533,46 @@ def breakdown_text(bd: dict) -> str:
             f"{bd['events_us']:.1f}, device "
             f"{bd['device_us']:.1f} us/call (" + ", ".join(
                 f"{k} {v:.1f}" for k, v in bd["kernels_us"].items()) + ")")
+
+
+def merge_multiply_row(name: str, k: int, label: str, fused, two_call,
+                       want, reps: int) -> dict:
+    """The merge multiply as its user calls it (``fused``: one C entry
+    call issues the memset of Y, the partials kernel and the carry step
+    launched as its programmatic dependent) against ``two_call`` (the
+    partials wrapper, then the standalone carry step): bitwise equal, two
+    fused calls bitwise equal, within the tolerance of the plain answer
+    ``want``; both timed over ``reps`` calls, with their
+    ``launch_breakdown``. Raises on any miss."""
+    import torch
+    yf, again, y2 = fused(), fused(), two_call()
+    torch.cuda.synchronize()
+    if not torch.equal(yf, y2):
+        raise AssertionError(f"fused {label} differs from the two-call path"
+                             f" on {name} k={k}")
+    if not torch.equal(yf, again):
+        raise AssertionError(f"fused {label} is not deterministic on {name}"
+                             f" k={k}")
+    err, tol = max_err(yf, want), tol_of(want)
+    if err > tol:
+        raise AssertionError(f"fused {label} disagrees with the plain "
+                             f"version on {name} k={k}: {err:.3g} > "
+                             f"{tol:.3g}")
+    del yf, again, y2
+    row = {"matrix": name, "k": k, "multiply": f"{label} (fused)",
+           "max_abs_err": err, "tol": tol, "ms": cuda_ms(fused, reps),
+           "two_call_ms": cuda_ms(two_call, reps),
+           "prev_ms": PREV_MS.get((name, k, label))}
+    row["breakdown"] = launch_breakdown(fused, reps)
+    row["two_call_breakdown"] = launch_breakdown(two_call, reps)
+    prev = row["prev_ms"]
+    print(f"[chip_smoke]   {label} k={k:<2} fused == two-call bitwise, "
+          f"max_abs_err={err:.3g} tol={tol:.3g} ok; fused {row['ms']:.4f} "
+          f"ms, two-call {row['two_call_ms']:.4f} ms, prev_ms="
+          f"{'None' if prev is None else f'{prev:.4f}'}; fused "
+          f"{breakdown_text(row['breakdown'])}; two-call "
+          f"{breakdown_text(row['two_call_breakdown'])}", flush=True)
+    return row
 
 
 def gather_bound_ms(nnz: int, m: int, n: int, k: int) -> float:
@@ -631,6 +729,7 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
     from repro_torch.core import coo_to_csr
     from repro_torch.data import matrices
     from repro_torch.kernels import merge_spmv as MS
+    from repro_torch.kernels import ops as KO
     from repro_torch.spmm import kernels as SK
     from repro_torch.spmm.reference import (sellcs_slot_x, spmm_coo_t,
                                             spmm_csr)
@@ -754,7 +853,7 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
         err2 = max(max_err(yk, yp), max_err(cvk, cvp))
         carry_bytes = 2 * P * (4 + 4 * k)
         b, by = bound_ms(spmm_bytes(nnz, m, n, k), 2.0 * nnz * k)
-        # the wrapper zeroes all of Y before the launch: its cost alone
+        # the C entry zeroes all of Y before the launch: its cost alone
         zscratch = torch.empty_like(yk)
         rows.append(("K2", err2, tol_of(yp), cuda_ms(k2, reps),
                      cuda_ms(k2p, max(reps // 2, 1)), b, by, lib_ms,
@@ -773,18 +872,32 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
         scratch = yk.clone()
         keep = crk >= 0
         rows_kept, vals_kept = crk[keep].long(), cvk[keep]
+
+        def fix():
+            return MS.carry_out_fixup(scratch, crk, cvk)
+
+        def lib_fix():
+            return scratch.index_add_(0, rows_kept, vals_kept)
         rows.append(("carry", max_err(fk, fp), tol_of(fp),
-                     cuda_ms(lambda: MS.carry_out_fixup(scratch, crk, cvk),
-                             reps),
+                     cuda_ms(fix, reps),
                      cuda_ms(lambda: MS.carry_out_fixup_plain(
                          scratch, crk, cvk), reps), b, by,
-                     cuda_ms(lambda: scratch.index_add_(0, rows_kept,
-                                                        vals_kept), reps)))
+                     cuda_ms(lib_fix, reps),
+                     {"device_ms": device_ms(fix),
+                      "library_device_ms": device_ms(lib_fix),
+                      "prev_ms": PREV_MS.get((name, k, "carry"))}))
         # the whole merge multiply against the torch oracle
         err_ref = max_err(fk, spmm_csr(csr, X))
         if err_ref > tol_of(fk):
             raise AssertionError(f"merge K2+carry vs oracle on {name} "
                                  f"k={k}: {err_ref:.3g}")
+        # csr_spmm: K2 and the carry step from one C entry call
+        shape_rows.append(merge_multiply_row(
+            name, k, "csr_spmm", lambda: SK.csr_spmm(csr, X),
+            lambda: MS.carry_out_fixup(*SK._merge_spmm_partials(plan, X, m)),
+            MS.carry_out_fixup_plain(yp.clone(), crp, cvp),
+            SHORT_REPS if k == 1 else 50))
+        del scratch, rows_kept, vals_kept, fk, fp
 
         # K4 (the k = 1 entry)
         if k == 1:
@@ -813,6 +926,13 @@ def check_kernels(name: str, scale: float, ks, reps: int, table: dict,
                   f"{breakdown_text(bd)}; library {breakdown_text(bl)}",
                   flush=True)
             rows[-1][-1].update(breakdown=bd, library_breakdown=bl)
+            # ops.merge_spmv: K4 and the carry step from one C entry call
+            shape_rows.append(merge_multiply_row(
+                name, 1, "merge_spmv", lambda: KO.merge_spmv(csr, x1),
+                lambda: MS.carry_out_fixup(*MS.merge_spmv_partials(plan, x1,
+                                                                   m)),
+                MS.carry_out_fixup_plain(yp.clone(), crp, cvp)[:, 0],
+                SHORT_REPS))
 
         for kern, err, tol, ms, pms, b, by, lms, *more in rows:
             extra = more[0] if more else {}
@@ -2641,6 +2761,12 @@ def main(argv=None) -> int:
         for kern in ("K2", "K4", "carry"):
             if counts_b[kern] <= 0:
                 raise AssertionError(f"serve B never launched {kern}")
+        # every merge multiply of serve B is one fused C entry call
+        if (counts_b["merge_spmv_calls"], counts_b["merge_spmm_calls"],
+                counts_b["carry"]) != (counts_b["K4"], counts_b["K2"],
+                                       counts_b["K4"] + counts_b["K2"]):
+            raise AssertionError(f"serve B's merge multiplies did not all go"
+                                 f" through the fused entries: {counts_b}")
         if swaps != 1:
             raise AssertionError(f"serve B plan_swaps {swaps} != 1")
         check_flush(res, MAIN_K)
@@ -2695,6 +2821,7 @@ def main(argv=None) -> int:
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"]}
         for extra in ("tile_gb_per_s", "per_shard_ms", "gather_bound_ms",
+                      "device_ms", "library_device_ms",
                       "unpermute_ms", "decode_ms", "decode_plain_ms",
                       "decode_bound_ms", "decode_library_ms",
                       "decode_tiled_ms", "decode_launches",

@@ -37,9 +37,8 @@
 // rows sums the run in chain order, per column: rows inside the span go
 // into Y, the span's own first and last rows — the only rows a
 // neighbouring span can share — to the [P, 2, k] carry buffer with their
-// global row ids (-1 for none). The carry kernel then adds, for each row,
-// all carries naming it in span order (the mawi dense row crosses many
-// spans) and adds the sum into Y. Every output element is written by one
+// global row ids (-1 for none). The carry step (below) then adds, for each
+// row, all carries naming it into Y. Every output element is written by one
 // thread once, in a fixed order, so K2 is deterministic and needs no
 // atomics; Y must start zeroed (rows with no items are never written).
 //
@@ -69,6 +68,35 @@
 // Padding: the plan pads each span to D items with seg == 0, val == 0,
 // col == 0. Only the first span_len[p] items are read, so the drop back to
 // seg == 0 never opens a new row.
+//
+// The carry step's design. Its work is tiny (2P carries of k floats) but
+// it sits after every merge multiply, so what it costs is latency: a host
+// call, a launch, and the longest run of carries that name one row (the
+// mawi dense row crosses hundreds of spans). So:
+// * one host call per multiply: merge_spmv_launch / merge_spmm_launch
+//   issue the memset of Y, the partials kernel and the fix-up on the
+//   caller's stream, with Y and the carries in one allocation;
+// * the fix-up is launched with programmatic dependent launch: every
+//   partials block lets it launch as it starts
+//   (cudaTriggerProgrammaticLaunchCompletion), so its launch and block
+//   scheduling overlap the partials' last wave, and it waits in
+//   cudaGridDependencySynchronize() before it reads anything. The
+//   partials kernels write a span's first and last rows only to the
+//   carries, never to Y, so the fix-up's += into Y races with nothing;
+// * one warp per carry entry; the warp at the head of a run of entries
+//   that name one row (-1 entries skipped) sums the run. It first finds
+//   the run's end from the rows alone (a ballot over the 32 entries from
+//   e, then 256 a round). A pass of up to 32 columns gives each column kc
+//   lanes (the least power of two >= the pass's width) and the 32 / kc
+//   lane slots split the run's entries (its i-th entry to slot
+//   i % (32 / kc)); every lane sums its entries in span order (its
+//   first 2 loaded with the rows, then up to 32 a round with all their
+//   loads in flight), and a fixed xor butterfly adds the slots. At k >= 32 (kc = 32) the lanes take the columns and each
+//   column is summed in span order with coalesced loads; at k = 1 the 32
+//   lanes split a long run, so the dense row costs a warp's parallel
+//   loads, not a chain of dependent ones. The standalone carry_out_fixup
+//   entry launches the same kernel, so both paths give the same bits; no
+//   atomics.
 
 #include <cuda_runtime.h>
 
@@ -163,6 +191,10 @@ merge_partials_kernel(const int* __restrict__ cols,
   __shared__ int s_list[2 * NC];
   __shared__ int s_n;
   __shared__ __align__(16) float s_val[2 * NC * CP];
+  // a carry fix-up launched after this grid may start scheduling its
+  // blocks once every block of this one has started (it waits for this
+  // grid to finish before it reads a carry)
+  cudaTriggerProgrammaticLaunchCompletion();
   const int p = blockIdx.x;
   const int ch = threadIdx.x / S, li = threadIdx.x % S;
   const int lane = threadIdx.x & 31;
@@ -297,30 +329,161 @@ merge_partials_kernel(const int* __restrict__ cols,
   }
 }
 
-// One thread per (carry entry, column). The thread at the head of a run of
-// entries naming the same row sums the run in span order and adds it into
-// Y; every other thread returns. Entries with row -1 are skipped.
-__global__ void merge_carry_fixup_kernel(const int* __restrict__ carry_row,
-                                         const float* __restrict__ carry_val,
-                                         float* __restrict__ y,
-                                         int n_entries, int k) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n_entries * k) return;
-  const int e = (int)(t / k);
-  const int j = (int)(t - (long long)e * k);
-  const int r = carry_row[e];
-  if (r < 0) return;
-  int q = e - 1;
-  while (q >= 0 && carry_row[q] < 0) --q;
-  if (q >= 0 && carry_row[q] == r) return;       // not the head of its run
-  float sum = 0.f;
-  for (int f = e; f < n_entries; ++f) {
-    const int rf = carry_row[f];
-    if (rf < 0) continue;
-    if (rf != r) break;
-    sum += carry_val[(long long)f * k + j];
+// ------------------------------------------------------------ carry ----
+constexpr int kFixWarps = 8;                   // warps (carry entries) a block
+constexpr int kFixFirst = 2;                   // entries a lane loads at once
+constexpr int kFixScan = 8;                    // rows a lane scans a round
+constexpr int kFixLoads = 32;                  // entries a lane sums a round
+
+// A pass of the carry step over columns j0 .. j0 + w - 1 (w <= 32): each
+// column has kc = 1 << lg lanes (the least power of two >= w) and the
+// S = 32 / kc lane slots take the run's entries in turn; a lane past the
+// pass's width reads column j0 and writes nothing.
+struct FixPass {
+  int w, lg, S, s, c;
+  long long cj;
+  __device__ FixPass(int j0, int k, int lane) {
+    w = min(32, k - j0);
+    lg = 0;
+    while ((1 << lg) < w) ++lg;
+    S = 32 >> lg;
+    s = lane >> lg;
+    c = lane & ((1 << lg) - 1);
+    cj = (long long)j0 + (c < w ? c : 0);
   }
-  y[(long long)r * k + j] += sum;
+};
+
+// The lane's entries f0 + s + u S (u < U) of a pass: rows and values,
+// every load issued before any is used (an entry past the last reads the
+// last: the adds mask it). L2 loads (ld.cg): the carries were written by
+// the grid this one may have overlapped.
+template <int U>
+__device__ __forceinline__ void fix_load(
+    const int* __restrict__ carry_row, const float* __restrict__ carry_val,
+    int n, int k, const FixPass& ps, int f0, int* rf, float* v) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int f = min(f0 + u * ps.S + ps.s, n - 1);
+    rf[u] = __ldcg(carry_row + f);
+    v[u] = __ldcg(carry_val + (long long)f * k + ps.cj);
+  }
+}
+
+// Adds the loaded entries of the run (before end, naming row r) to sum in
+// order. The others add +0: a select, not a branch, so that no load is
+// sunk into a branch and made to wait for the one before.
+template <int U>
+__device__ __forceinline__ float fix_add(const FixPass& ps, int f0, int end,
+                                         int r, const int* rf,
+                                         const float* v, float sum) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool in = f0 + u * ps.S + ps.s < end && rf[u] == r;
+    sum += in ? v[u] : 0.f;
+  }
+  return sum;
+}
+
+// Entry e's warp: if e heads a run of entries that name one row, add the
+// run's sum into that row of y (see the header). Warp-uniform throughout.
+// A run of up to 2 S entries costs two dependent rounds of loads: the
+// rows around e (is e a head, where does its run end) with the run's
+// first values, then y's row.
+__device__ __forceinline__ void carry_fixup_warp(
+    const int* __restrict__ carry_row, const float* __restrict__ carry_val,
+    float* __restrict__ y, int n, int k, int e) {
+  const int lane = threadIdx.x & 31;
+  auto row_at = [&](int f) { return f < n ? __ldcg(carry_row + f) : -2; };
+  const int r = __ldcg(carry_row + e);
+  int rq = e - 1 - lane >= 0 ? __ldcg(carry_row + e - 1 - lane) : -1;
+  const int rn = row_at(e + lane);             // -2: past the last entry
+  FixPass ps(0, k, lane);
+  int rf[kFixLoads];
+  float v[kFixLoads];
+  fix_load<kFixFirst>(carry_row, carry_val, n, k, ps, e, rf, v);
+  if (r < 0) return;
+  // the nearest entry before e that names a row decides the head
+  for (int q0 = e - 1;;) {
+    const unsigned named = __ballot_sync(kFull, rq >= 0);
+    if (named) {
+      if (__shfl_sync(kFull, rq, __ffs(named) - 1) == r) return;
+      break;
+    }
+    q0 -= 32;
+    if (q0 < 0) break;
+    rq = q0 - lane >= 0 ? __ldcg(carry_row + q0 - lane) : -1;
+  }
+  // the run ends at the first entry after e that names another row
+  unsigned other = __ballot_sync(kFull, rn != r && rn != -1);
+  int end = e + __ffs(other) - 1;
+  for (int f0 = e + 32; !other; f0 += 32 * kFixScan) {
+    int rr[kFixScan];
+#pragma unroll
+    for (int u = 0; u < kFixScan; ++u) rr[u] = row_at(f0 + u * 32 + lane);
+#pragma unroll
+    for (int u = 0; u < kFixScan; ++u) {
+      const unsigned b = __ballot_sync(kFull, rr[u] != r && rr[u] != -1);
+      if (b && !other) {
+        other = b;
+        end = f0 + u * 32 + __ffs(b) - 1;
+      }
+    }
+  }
+  for (int j0 = 0; j0 < k; j0 += 32) {
+    if (j0 > 0) {
+      ps = FixPass(j0, k, lane);
+      fix_load<kFixFirst>(carry_row, carry_val, n, k, ps, e, rf, v);
+    }
+    const bool out = ps.s == 0 && ps.c < ps.w;   // the lane that writes
+    float* yp = y + (long long)r * k + ps.cj;
+    const float y0 = out ? *yp : 0.f;
+    // each lane sums its slot's entries e + s, e + s + S, ... in span
+    // order: the first kFixFirst, then kFixLoads a round
+    float sum = fix_add<kFixFirst>(ps, e, end, r, rf, v, 0.f);
+    for (int f0 = e + kFixFirst * ps.S; f0 < end; f0 += kFixLoads * ps.S) {
+      fix_load<kFixLoads>(carry_row, carry_val, n, k, ps, f0, rf, v);
+      sum = fix_add<kFixLoads>(ps, f0, end, r, rf, v, sum);
+    }
+    // the slots' sums, in a fixed order (every lane of a column ends with
+    // the same bits: each add has the same two operands)
+    for (int off = 1 << ps.lg; off < 32; off <<= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    if (out) *yp = y0 + sum;
+  }
+}
+
+// A block takes kFixWarps entries, a warp each. A minimum of one block an
+// SM lets ptxas give a thread the registers to hold a round's 64 loaded
+// values at once; under its default budget it interleaves the loads with
+// the adds, and a long run's loads wait for one another.
+__global__ void __launch_bounds__(kFixWarps * 32, 1)
+merge_carry_fixup_kernel(const int* __restrict__ carry_row,
+                         const float* __restrict__ carry_val,
+                         float* __restrict__ y, int n, int k) {
+  // launched as a programmatic dependent of the partials kernel: wait for
+  // its carries (returns at once after an ordinary launch)
+  cudaGridDependencySynchronize();
+  const int e = blockIdx.x * kFixWarps + (threadIdx.x >> 5);
+  if (e < n) carry_fixup_warp(carry_row, carry_val, y, n, k, e);
+}
+
+// The fix-up over n entries on stream s; pdl: as a programmatic dependent
+// of the kernel before it in the stream.
+int launch_fixup(const int* carry_row, const float* carry_val, float* y,
+                 int n, int k, cudaStream_t s, bool pdl) {
+  if (n <= 0 || k <= 0) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n + kFixWarps - 1) / kFixWarps));
+  cfg.blockDim = dim3(kFixWarps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, merge_carry_fixup_kernel, carry_row,
+                                 carry_val, y, n, k);
 }
 
 template <int S, int L>
@@ -385,6 +548,7 @@ merge_spmv_kernel(const int* __restrict__ cols,
   // the sum since its last row start (its whole sum when none starts)
   __shared__ int s_flag[2][kSpmvWarps];
   __shared__ float s_sum[2][kSpmvWarps];
+  cudaTriggerProgrammaticLaunchCompletion();     // as in K2
   const int p = blockIdx.x;
   const int wi = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -532,49 +696,106 @@ merge_spmv_kernel(const int* __restrict__ cols,
   }
 }
 
+// The one allocation of a merge multiply: y f32[m, k], then carry_row
+// i32[2P], then carry_val f32[2P, k] (`merge_out_views` in
+// kernels/merge_spmv.py cuts the same views).
+struct MergeOut {
+  float* y;
+  int* carry_row;
+  float* carry_val;
+  MergeOut(float* out, long long m, int k, int P)
+      : y(out), carry_row(reinterpret_cast<int*>(out + m * k)),
+        carry_val(out + m * k + 2LL * P) {}
+};
+
+// K2 on one stream: the memset of y, the partials kernel and, with fix,
+// the carry step as its programmatic dependent.
+int issue_spmm(const int* cols, const float* vals, const int* seg,
+               const int* row_starts, const int* span_len, const float* x,
+               float* out, int P, int D, long long m, int k, void* stream,
+               bool fix) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const MergeOut o(out, m, k, P);
+  const cudaError_t e =
+      cudaMemsetAsync(o.y, 0, (size_t)m * k * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
+  const int rc = launch_partials(cols, vals, seg, row_starts, span_len, x,
+                                 o.y, o.carry_row, o.carry_val, P, D, k,
+                                 stream);
+  if (rc != 0 || !fix || P <= 0) return rc;
+  return launch_fixup(o.carry_row, o.carry_val, o.y, 2 * P, k, s, true);
+}
+
+// K4 likewise (k = 1).
+int issue_spmv(const int* cols, const float* vals, const int* seg,
+               const int* row_starts, const int* span_len, const float* x,
+               float* out, int P, int D, long long m, void* stream,
+               bool fix) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const MergeOut o(out, m, 1, P);
+  const cudaError_t e = cudaMemsetAsync(o.y, 0, (size_t)m * sizeof(float),
+                                        s);
+  if (e != cudaSuccess || P <= 0) return (int)e;
+  merge_spmv_kernel<<<P, kSpmvThreads, 0, s>>>(
+      cols, vals, seg, row_starts, span_len, x, o.y, o.carry_row,
+      o.carry_val, D);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0 || !fix) return rc;
+  return launch_fixup(o.carry_row, o.carry_val, o.y, 2 * P, 1, s, true);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Plan arrays cols/vals/seg [P, D], row_starts i32[P+1], span_len i32[P];
-// x f32[n, k]; y f32[m, k] zeroed by the caller; carry_row i32[2P] and
-// carry_val f32[2P, k] fully written. Returns cudaGetLastError().
+// x f32[n, k]; out the one allocation (MergeOut) of m * k + 2P (k + 1)
+// floats: y is zeroed here (rows with no item are never written), the
+// carries are fully written. Returns the first CUDA error.
 int merge_spmm_partials_launch(const int* cols, const float* vals,
                                const int* seg, const int* row_starts,
-                               const int* span_len, const float* x, float* y,
-                               int* carry_row, float* carry_val, int P, int D,
-                               int k, void* stream) {
-  return launch_partials(cols, vals, seg, row_starts, span_len, x, y,
-                         carry_row, carry_val, P, D, k, stream);
+                               const int* span_len, const float* x,
+                               float* out, int P, int D, long long m, int k,
+                               void* stream) {
+  return issue_spmm(cols, vals, seg, row_starts, span_len, x, out, P, D, m,
+                    k, stream, false);
 }
 
-// K4, the k = 1 entry: the same arrays, x f32[n], y f32[m], zeroed here
-// (rows with no item are never written), carry_row i32[2P] and carry_val
-// f32[2P] fully written. Returns cudaGetLastError().
+// The whole merge SpMM, K2 and the carry step, from one host call: out as
+// above, y holds A x on return (in stream order).
+int merge_spmm_launch(const int* cols, const float* vals, const int* seg,
+                      const int* row_starts, const int* span_len,
+                      const float* x, float* out, int P, int D, long long m,
+                      int k, void* stream) {
+  return issue_spmm(cols, vals, seg, row_starts, span_len, x, out, P, D, m,
+                    k, stream, true);
+}
+
+// K4, the k = 1 entry: the same arrays, x f32[n], out of m + 4P floats.
 int merge_spmv_partials_launch(const int* cols, const float* vals,
                                const int* seg, const int* row_starts,
-                               const int* span_len, const float* x, float* y,
-                               int* carry_row, float* carry_val, int P, int D,
-                               long long m, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = cudaMemsetAsync(y, 0, (size_t)m * sizeof(float), s);
-  if (e != cudaSuccess || P <= 0) return (int)e;
-  merge_spmv_kernel<<<P, kSpmvThreads, 0, s>>>(
-      cols, vals, seg, row_starts, span_len, x, y, carry_row, carry_val, D);
-  return (int)cudaGetLastError();
+                               const int* span_len, const float* x,
+                               float* out, int P, int D, long long m,
+                               void* stream) {
+  return issue_spmv(cols, vals, seg, row_starts, span_len, x, out, P, D, m,
+                    stream, false);
 }
 
-// carry_row i32[n_entries], carry_val f32[n_entries, k], y f32[m, k].
+// The whole merge SpMV, K4 and the carry step, from one host call.
+int merge_spmv_launch(const int* cols, const float* vals, const int* seg,
+                      const int* row_starts, const int* span_len,
+                      const float* x, float* out, int P, int D, long long m,
+                      void* stream) {
+  return issue_spmv(cols, vals, seg, row_starts, span_len, x, out, P, D, m,
+                    stream, true);
+}
+
+// The standalone carry step: carry_row i32[n_entries], carry_val
+// f32[n_entries, k], y f32[m, k] (an ordinary launch of the same kernel).
 int merge_carry_fixup_launch(const int* carry_row, const float* carry_val,
                              float* y, int n_entries, int k, void* stream) {
-  if (n_entries <= 0 || k <= 0) return 0;
-  const long long total = (long long)n_entries * k;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  merge_carry_fixup_kernel<<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(carry_row, carry_val, y,
-                                                     n_entries, k);
-  return (int)cudaGetLastError();
+  return launch_fixup(carry_row, carry_val, y, n_entries, k,
+                      (cudaStream_t)stream, false);
 }
 
 const char* repro_error_string(int code) {

@@ -25,8 +25,15 @@ item depths (trees with ``spmm.slots_plan`` only).
 ``--only paths`` times the single-vector paths K1 sits on at the host's
 pace instead: ``sellcs_spmm`` at k = 1 on the phase-2 matrices, a
 forward GMRES solve at rmat scale 20 (per K1 launch) and serve A's
-batched and sequential legs. ``--only`` picks groups (k9, k2, k3, k1,
-k8, paths; the default is every kernel group). ``device_ms`` is one call's
+batched and sequential legs. ``--only merge`` times the merge-path
+multiply as its user calls it (``kernels.ops.merge_spmv`` at k = 1,
+``spmm.csr_spmm`` at k = 1, 8, 32 and 33: the partials kernel and the
+carry step) on the phase-2 matrices, with the host's time to issue a
+call (``host_us``), and the standalone carry step
+(``merge_spmv.carry_out_fixup``) against ``index_add_`` at k = 1 and 32;
+every function it calls exists in trees before and after the carry
+step's redesign. ``--only`` picks groups (k9, k2, k3, k1, k8, paths,
+merge; the default is every kernel group). ``device_ms`` is one call's
 device time: the launches are queued behind a sleeping kernel, so they
 run back to back however slowly the host issues them; ``events_ms`` is
 the mean of the same calls issued at the host's pace. The last line is
@@ -75,6 +82,77 @@ def events_ms(fn, reps: int = REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int = REPS) -> float:
+    """Microseconds the host takes to issue one call (``reps`` calls, no
+    synchronize in the window)."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def merge_rows(reps: int = 200) -> list:
+    """The merge-path multiply through its entry points and the carry step
+    alone, on each phase-2 matrix's own merge plan."""
+    from repro_torch.core import coo_to_csr
+    from repro_torch.kernels import merge_spmv as MS
+    from repro_torch.kernels import ops as KO
+    from repro_torch.spmm import csr_spmm
+    from repro_torch.spmm import kernels as SK
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    out = []
+    for name, scale in (("hhh_like", 64.0), ("mawi_like", 4.0),
+                        ("road_like", 8.0)):
+        coo = _coo(name, scale)
+        m, n = coo.shape
+        csr = coo_to_csr(coo)
+        plan = MS.cached_merge_plan(csr)
+        cases = [("merge_spmv", 1)] + [("csr_spmm", k) for k in
+                                       (1, 8, 32, 33)]
+        for path, k in cases:
+            X = torch.randn((n, k), generator=gen, device="cuda")
+            x1 = X[:, 0].contiguous()
+            if path == "merge_spmv":
+                def fn():
+                    return KO.merge_spmv(csr, x1)
+            else:
+                def fn():
+                    return csr_spmm(csr, X)
+            out.append({"path": path, "matrix": name, "scale": scale,
+                        "k": k, "host_us": host_us(fn, reps),
+                        "events_ms": events_ms(fn, reps),
+                        "device_ms": device_ms(fn, reps)})
+            print(f"[kernel_profile] {out[-1]}", flush=True)
+            if k in (1, 32) and path == "csr_spmm":
+                y, cr, cv = SK._merge_spmm_partials(plan, X, m)
+                keep = cr >= 0
+                rows_kept, vals_kept = cr[keep].long(), cv[keep]
+
+                def fix():
+                    return MS.carry_out_fixup(y, cr, cv)
+
+                def lib():
+                    return y.index_add_(0, rows_kept, vals_kept)
+                out.append({"path": "carry_out_fixup", "matrix": name,
+                            "scale": scale, "k": k,
+                            "host_us": host_us(fix, reps),
+                            "events_ms": events_ms(fix, reps),
+                            "device_ms": device_ms(fix, reps),
+                            "library_events_ms": events_ms(lib, reps),
+                            "library_device_ms": device_ms(lib, reps)})
+                print(f"[kernel_profile] {out[-1]}", flush=True)
+                del y, cr, cv, rows_kept, vals_kept
+            del X, x1
+        del coo, csr, plan
+        torch.cuda.empty_cache()
+    return out
 
 
 def k9_rows() -> list:
@@ -349,7 +427,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="k9,k2,k3,k1,k8",
                     help="comma-separated groups: k9, k2, k3, k1, k8, "
-                         "paths")
+                         "paths, merge")
     ap.add_argument("--depths", default="",
                     help="comma-separated K1 item depths to time too")
     args = ap.parse_args(argv)
@@ -361,7 +439,7 @@ def main(argv=None) -> int:
     rows = []
     for name, fn in (("k9", k9_rows), ("k2", k2_rows), ("k3", k3_rows),
                      ("k1", lambda: k1_rows(depths)), ("k8", k8_rows),
-                     ("paths", path_rows)):
+                     ("paths", path_rows), ("merge", merge_rows)):
         if name in groups:
             rows += fn()
     print(json.dumps({"device": torch.cuda.get_device_name(0),

@@ -48,10 +48,17 @@ SIGNATURES = {
                                              _P]),
     "sellcs_slots_t_launch": ("sellcs", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _P]),
-    "merge_spmm_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,
-                                             _P, _I, _I, _I, _P]),
-    "merge_spmv_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _P,
-                                             _P, _I, _I, _L, _P]),
+    # merge multiplies: plan arrays, x, the one output allocation, P, D,
+    # m (and k for K2), stream; the *_partials entries stop before the
+    # carry step
+    "merge_spmm_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _I,
+                                             _I, _L, _I, _P]),
+    "merge_spmm_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L,
+                                    _I, _P]),
+    "merge_spmv_partials_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _I,
+                                             _I, _L, _P]),
+    "merge_spmv_launch": ("merge", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L,
+                                    _P]),
     "merge_carry_fixup_launch": ("merge", [_P, _P, _P, _I, _I, _P]),
     "tiled_spmv_launch": ("tiled", [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
                                     _P, _P, _I, _I, _L, _P]),

@@ -23,9 +23,16 @@ Kernels (``csrc/merge_spmm.cu``):
   (the only rows a neighbouring span can share) as carries
   ``carry_row`` i32[2P] (global row id, -1 for none) and ``carry_val``.
 * :func:`carry_out_fixup` — replaces ``repro.kernels.merge_spmv.
-  carry_out_fixup``: adds every row's carries, in span order, into ``y``.
+  carry_out_fixup``: adds every row's carries into ``y`` (one warp per
+  run of carries that name one row).
+* :func:`merge_spmv_fused` — the whole SpMV from one host call (the C
+  entry ``merge_spmv_launch``): the memset of ``y``, K4 and the carry
+  step, the last launched as a programmatic dependent of K4. The
+  multiply's path (``kernels.ops.merge_spmv``) takes it; the two wrappers
+  above mirror the reference's API and give the same bits in two calls.
 
-No (P, R) or (P, R, k) partials buffer exists. Each wrapper takes its
+``y`` and the carries share one allocation (:func:`merge_out_views`). No
+(P, R) or (P, R, k) partials buffer exists. Each wrapper takes its
 plain PyTorch version (the ``*_plain`` functions below) only for tensors on
 the CPU; for a CUDA tensor it launches the kernel or raises.
 """
@@ -60,9 +67,12 @@ class MergePlan:
     row_starts: torch.Tensor   # int32[P+1]
     span_len: torch.Tensor     # int32[P] — real items per span
     r_width: int               # R — the reference's padded local row width
-    # the arrays the kernel wrappers last validated (``_check_plan``)
+    # the arrays the kernel wrappers last validated (``_check_plan``) and
+    # their device pointers
     _checked: tuple = dataclasses.field(default=(), init=False, repr=False,
                                         compare=False)
+    _ptrs: tuple = dataclasses.field(default=(), init=False, repr=False,
+                                     compare=False)
 
     @property
     def num_spans(self) -> int:
@@ -172,13 +182,14 @@ def carry_out_fixup_plain(y: torch.Tensor, carry_row: torch.Tensor,
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
-def _check_plan(plan: MergePlan) -> None:
+def _check_plan(plan: MergePlan) -> tuple:
     """Validate the plan's arrays before their pointers go to C; a plan
-    whose arrays are the ones last checked is not checked again."""
+    whose arrays are the ones last checked is not checked again. Returns
+    the arrays' device pointers (cols, vals, seg, row_starts, span_len)."""
     arrays = (plan.cols, plan.vals, plan.seg, plan.row_starts,
               plan.span_len)
-    if all(a is b for a, b in zip(arrays, plan._checked)):
-        return
+    if plan._ptrs and all(a is b for a, b in zip(arrays, plan._checked)):
+        return plan._ptrs
     P = plan.num_spans
     _lib.require(plan.cols, "plan.cols", torch.int32, 2)
     _lib.require(plan.vals, "plan.vals", torch.float32, 2)
@@ -188,6 +199,48 @@ def _check_plan(plan: MergePlan) -> None:
     if plan.row_starts.shape[0] != P + 1 or plan.span_len.shape[0] != P:
         raise ValueError("plan.row_starts / plan.span_len do not match P")
     plan._checked = arrays
+    plan._ptrs = tuple(a.data_ptr() for a in arrays)
+    return plan._ptrs
+
+
+def merge_out(m: int, k: int, P: int, device) -> torch.Tensor:
+    """The one allocation of a merge multiply of ``m`` rows, ``k`` columns
+    and ``P`` spans (uninitialized: the C entries zero ``y`` and write
+    every carry); :func:`merge_out_views` cuts it."""
+    return torch.empty(m * k + 2 * P * (k + 1), dtype=torch.float32,
+                       device=device)
+
+
+def merge_out_views(buf: torch.Tensor, m: int, k: int, P: int,
+                    vector: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(y, carry_row, carry_val)`` in ``buf`` as ``csrc/merge_spmm.cu``
+    lays them out (``MergeOut``): ``y`` f32[m, k] at offset 0, then
+    ``carry_row`` i32[2P], then ``carry_val`` f32[2P, k]; ``vector``
+    (K4, k = 1) gives ``y`` f32[m] and ``carry_val`` f32[2P]."""
+    mk = m * k
+    y = buf[:mk]
+    carry_row = buf[mk:mk + 2 * P].view(torch.int32)
+    carry_val = buf[mk + 2 * P:mk + 2 * P * (k + 1)]
+    if not vector:
+        y, carry_val = y.view(m, k), carry_val.view(2 * P, k)
+    return y, carry_row, carry_val
+
+
+def merge_call(fn: str, plan: MergePlan, x: torch.Tensor, m: int
+               ) -> torch.Tensor:
+    """Validate a CUDA merge multiply's operands and call the C entry
+    ``fn`` (K4's for ``x`` f32[n], K2's for ``x`` f32[n, k]; the whole
+    multiply or its partials) on the current stream. Returns the one
+    allocation it filled (:func:`merge_out_views`)."""
+    ptrs = _check_plan(plan)
+    _lib.require(x, "x", torch.float32, x.ndim)
+    P, D = plan.cols.shape
+    k = () if x.ndim == 1 else (int(x.shape[1]),)
+    buf = merge_out(m, k[0] if k else 1, P, x.device)
+    _lib.check(_lib.entry(fn)(*ptrs, x.data_ptr(), buf.data_ptr(), P, D, m,
+                              *k, _lib.stream_of(x)), fn)
+    return buf
 
 
 def merge_spmv_partials(plan: MergePlan, x: torch.Tensor, m: int
@@ -199,30 +252,40 @@ def merge_spmv_partials(plan: MergePlan, x: torch.Tensor, m: int
     if x.device.type == "cpu":
         y, cr, cv = merge_partials_plain(plan, x[:, None], m)
         return y[:, 0], cr, cv[:, 0]
-    _check_plan(plan)
-    _lib.require(x, "x", torch.float32, 1)
-    P, D = plan.cols.shape
-    # one allocation: y (zeroed by the entry), carry_row, carry_val
-    buf = torch.empty(m + 4 * P, dtype=torch.float32, device=x.device)
-    y, carry_val = buf[:m], buf[m + 2 * P:]
-    carry_row = buf[m:m + 2 * P].view(torch.int32)
-    fn = "merge_spmv_partials_launch"
-    _lib.check(_lib.entry(fn)(
-        plan.cols.data_ptr(), plan.vals.data_ptr(), plan.seg.data_ptr(),
-        plan.row_starts.data_ptr(), plan.span_len.data_ptr(), x.data_ptr(),
-        y.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(), P, D, m,
-        _lib.stream_of(x)), fn)
+    buf = merge_call("merge_spmv_partials_launch", plan, x, m)
     merge_spmv_partials.launches += 1
-    return y, carry_row, carry_val
+    return merge_out_views(buf, m, 1, plan.num_spans, vector=True)
 
 
 merge_spmv_partials.launches = 0
 
 
+def merge_spmv_fused(plan: MergePlan, x: torch.Tensor, m: int
+                     ) -> torch.Tensor:
+    """The whole merge-path SpMV ``y = A x`` for ``x`` f32[n] -> f32[m]
+    from one C entry call (``merge_spmv_launch``: the memset of ``y``, K4,
+    then the carry step as K4's programmatic dependent); bitwise equal to
+    :func:`merge_spmv_partials` followed by :func:`carry_out_fixup`. Counts
+    one call (``.calls``) and a launch of each kernel."""
+    if x.ndim != 1:
+        raise ValueError(f"x must be [n], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        y, cr, cv = merge_partials_plain(plan, x[:, None], m)
+        return carry_out_fixup_plain(y, cr, cv)[:, 0]
+    buf = merge_call("merge_spmv_launch", plan, x, m)
+    merge_spmv_fused.calls += 1
+    merge_spmv_partials.launches += 1
+    carry_out_fixup.launches += 1
+    return buf[:m]
+
+
+merge_spmv_fused.calls = 0
+
+
 def carry_out_fixup(y: torch.Tensor, carry_row: torch.Tensor,
                     carry_val: torch.Tensor) -> torch.Tensor:
-    """The carry step: add each row's carries, in span order, into ``y``
-    ([m] or [m, k]) in place; returns ``y``."""
+    """The carry step: add each row's carries into ``y`` ([m] or [m, k])
+    in place; returns ``y``."""
     if y.device.type == "cpu":
         return carry_out_fixup_plain(y, carry_row, carry_val)
     k = 1 if y.ndim == 1 else int(y.shape[1])

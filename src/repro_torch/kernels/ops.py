@@ -45,7 +45,9 @@ def merge_spmv(csr: CSR, x: torch.Tensor, *, num_spans: Optional[int] = None,
                plan: Optional[_merge.MergePlan] = None,
                plain: bool = False) -> torch.Tensor:
     """Merge-path SpMV ``y = A x`` -> f32[m]. The plan is built once per
-    CSR and span count (:func:`merge_spmv.cached_merge_plan`) and reused."""
+    CSR and span count (:func:`merge_spmv.cached_merge_plan`) and reused.
+    On the card one C entry call issues K4 and the carry step
+    (:func:`merge_spmv.merge_spmv_fused`)."""
     m, n = csr.shape
     if x.shape != (n,):
         raise ValueError(f"x must be [{n}], got {tuple(x.shape)}")
@@ -55,8 +57,7 @@ def merge_spmv(csr: CSR, x: torch.Tensor, *, num_spans: Optional[int] = None,
     if plain:
         y, cr, cv = _merge.merge_partials_plain(plan, x[:, None], m)
         return _merge.carry_out_fixup_plain(y, cr, cv)[:, 0]
-    y, cr, cv = _merge.merge_spmv_partials(plan, x, m)
-    return _merge.carry_out_fixup(y, cr, cv)
+    return _merge.merge_spmv_fused(plan, x, m)
 
 
 class GroupPadding(NamedTuple):

@@ -120,7 +120,7 @@ def _lcm(a, b):
 def _ssm_missing() -> NotImplementedError:
     return NotImplementedError(
         "the SSM mixer (models/ssm.py) is not ported yet: ROADMAP.md queue "
-        "1 item 12")
+        "1 item 3")
 
 
 class ParamTree(nn.Module):

@@ -2,7 +2,7 @@
 
 Only ``SSMConfig`` is here, which the model config and the parameter
 accounting read. The SSM mixer itself (``ssm_init``, ``ssm_forward``,
-``ssm_decode``) is not ported yet (ROADMAP.md queue 1 item 12); a config
+``ssm_decode``) is not ported yet (ROADMAP.md queue 1 item 3); a config
 with an ``"ssm"`` slot raises ``NotImplementedError`` in
 ``repro_torch.models.model``.
 """

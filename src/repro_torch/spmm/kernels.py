@@ -8,7 +8,9 @@ replaces ``sellcs_slots(col_map=…)`` / ``_sellcs_fused_kernel``; K3
 :func:`sellcs_slots_t` replaces
 ``repro.spmm.kernels.sellcs_slots_t`` / ``_sellcs_t_kernel``; K2
 :func:`_merge_spmm_partials` replaces
-``repro.spmm.kernels._merge_spmm_partials`` / ``_merge_kernel``; K6
+``repro.spmm.kernels._merge_spmm_partials`` / ``_merge_kernel`` (the
+multiply's path, ``csr_spmm``, issues it and the carry step from one
+host call, :func:`merge_spmm_fused`); K6
 :func:`tiled_spmm` replaces ``repro.spmm.kernels.tiled_spmm`` /
 ``_tiled_kernel``. All are CUDA C++ in ``repro_torch/csrc`` (see the
 notes in each source for the bound and the design). Each wrapper
@@ -411,27 +413,44 @@ def _merge_spmm_partials(plan: _merge.MergePlan, x: torch.Tensor, m: int
     """K2: merge-path SpMM partials for ``x`` f32[n, k] ->
     ``(y f32[m, k], carry_row i32[2P], carry_val f32[2P, k])`` — rows
     wholly inside one span in ``y``, each span's first and last rows as
-    carries for :func:`repro_torch.kernels.merge_spmv.carry_out_fixup`."""
+    carries for :func:`repro_torch.kernels.merge_spmv.carry_out_fixup` —
+    in one allocation (``merge_spmv.merge_out_views``) whose ``y`` the C
+    entry zeroes."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be [n, k], got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return _merge.merge_partials_plain(plan, x, m)
-    _merge._check_plan(plan)
-    _lib.require(x, "x", torch.float32, 2)
-    P, D = plan.cols.shape
-    k = int(x.shape[1])
-    y = torch.zeros((m, k), dtype=torch.float32, device=x.device)
-    carry_row = torch.empty(2 * P, dtype=torch.int32, device=x.device)
-    carry_val = torch.empty((2 * P, k), dtype=torch.float32, device=x.device)
-    fn = "merge_spmm_partials_launch"
-    _lib.check(_lib.entry(fn)(
-        plan.cols.data_ptr(), plan.vals.data_ptr(), plan.seg.data_ptr(),
-        plan.row_starts.data_ptr(), plan.span_len.data_ptr(), x.data_ptr(),
-        y.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(), P, D, k,
-        _lib.stream_of(x)), fn)
+    buf = _merge.merge_call("merge_spmm_partials_launch", plan, x, m)
     _merge_spmm_partials.launches += 1
-    return y, carry_row, carry_val
+    return _merge.merge_out_views(buf, m, int(x.shape[1]), plan.num_spans)
 
 
 _merge_spmm_partials.launches = 0
+
+
+def merge_spmm_fused(plan: _merge.MergePlan, x: torch.Tensor, m: int
+                     ) -> torch.Tensor:
+    """The whole merge-path SpMM ``Y = A X`` for ``x`` f32[n, k] ->
+    f32[m, k] from one C entry call (``merge_spmm_launch``: the memset of
+    Y, K2, then the carry step as K2's programmatic dependent); bitwise
+    equal to :func:`_merge_spmm_partials` followed by
+    ``merge_spmv.carry_out_fixup``. Counts one call (``.calls``) and a
+    launch of each kernel."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be [n, k], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        y, cr, cv = _merge.merge_partials_plain(plan, x, m)
+        return _merge.carry_out_fixup_plain(y, cr, cv)
+    buf = _merge.merge_call("merge_spmm_launch", plan, x, m)
+    k = int(x.shape[1])
+    merge_spmm_fused.calls += 1
+    if k > 0:
+        _merge_spmm_partials.launches += 1
+        _merge.carry_out_fixup.launches += 1
+    return buf[:m * k].view(m, k)
+
+
+merge_spmm_fused.calls = 0
 
 
 def csr_spmm(csr: CSR, x: torch.Tensor, *,
@@ -439,10 +458,11 @@ def csr_spmm(csr: CSR, x: torch.Tensor, *,
              num_spans: Optional[int] = None,
              k_tile: Optional[int] = None,
              plain: bool = False) -> torch.Tensor:
-    """Merge-path SpMM on flat CSR -> f32[m, k]: K2 then the carry step.
-    The plan is built once per CSR and span count and reused by every
-    multiply. ``plain=True`` runs the plain versions on any device;
-    ``k_tile`` is ignored (K2 covers all k)."""
+    """Merge-path SpMM on flat CSR -> f32[m, k]: K2 then the carry step,
+    on the card from one C entry call (:func:`merge_spmm_fused`). The plan
+    is built once per CSR and span count and reused by every multiply.
+    ``plain=True`` runs the plain versions on any device; ``k_tile`` is
+    ignored (K2 covers all k)."""
     m, _ = csr.shape
     if plan is None:
         plan = _merge.cached_merge_plan(csr, num_spans)
@@ -450,8 +470,7 @@ def csr_spmm(csr: CSR, x: torch.Tensor, *,
     if plain:
         y, cr, cv = _merge.merge_partials_plain(plan, x, m)
         return _merge.carry_out_fixup_plain(y, cr, cv)
-    y, cr, cv = _merge_spmm_partials(plan, x, m)
-    return _merge.carry_out_fixup(y, cr, cv)
+    return merge_spmm_fused(plan, x, m)
 
 
 # --------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from repro_torch import interop
 from repro_torch.core import coo_to_csr
 from repro_torch.core.convert import ALGORITHM_SPECS
 from repro_torch.data import matrices as TM
+from repro_torch.kernels import _lib
 from repro_torch.kernels import bsr_spmv as TBSR
 from repro_torch.kernels import coo_to_tiled
 from repro_torch.kernels import merge_spmv as TMS
@@ -887,6 +888,107 @@ def test_k2_matches_plain_at_every_width(cuda, case, k):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     full = TMS.carry_out_fixup(got[0].clone(), got[1], got[2])
     _close(full, spmm_ref(coo, X))
+
+
+# --------------------------------------------------------------------------
+# the merge multiply from one C entry call: the memset of Y, K4 or K2, and
+# the carry step launched as its programmatic dependent
+# --------------------------------------------------------------------------
+def _merge_case(cuda, case):
+    """The dense-row matrix of ``test_rows_spanning_many_spans`` at 200
+    spans (row 11 across dozens of them), or a suite matrix at its default
+    span count."""
+    if case == "dense_row":
+        m = n = 4000
+        rows = np.concatenate([np.full(n, 11), np.arange(m)])
+        cols = np.concatenate([np.arange(n), np.arange(m)])
+        vals = np.random.default_rng(0).standard_normal(rows.size).astype(
+            np.float32)
+        coo = TM.as_coo((rows, cols, vals, (m, n)), device=cuda)
+        csr = coo_to_csr(coo)
+        return coo, csr, TMS.cached_merge_plan(csr, 200)
+    coo = _matrix(cuda, case, 0.2)
+    csr = coo_to_csr(coo)
+    return coo, csr, TMS.cached_merge_plan(csr)
+
+
+def _entry_calls(monkeypatch):
+    """The names of the C entry points called from here on."""
+    names, real = [], _lib.entry
+
+    def entry(fn):
+        names.append(fn)
+        return real(fn)
+    monkeypatch.setattr(_lib, "entry", entry)
+    return names
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 33])
+@pytest.mark.parametrize("case", ["dense_row", "hhh_like", "mawi_like"])
+def test_fused_merge_multiply_one_call_bitwise_two_call_path(
+        cuda, monkeypatch, case, k):
+    """``csr_spmm`` (and ``kernels.ops.merge_spmv`` at k = 1) make one C
+    entry call, count one launch of each kernel, give the same bits as the
+    partials wrapper followed by the standalone carry step and as a second
+    call, and agree with the plain version and the oracle."""
+    coo, csr, plan = _merge_case(cuda, case)
+    m = coo.shape[0]
+    X = torch.randn((coo.shape[1], k), device=cuda)
+    names = _entry_calls(monkeypatch)
+    counts = (TK.merge_spmm_fused.calls, TK._merge_spmm_partials.launches,
+              TMS.carry_out_fixup.launches)
+    got = csr_spmm(csr, X, plan=plan)
+    assert names == ["merge_spmm_launch"]
+    assert (TK.merge_spmm_fused.calls, TK._merge_spmm_partials.launches,
+            TMS.carry_out_fixup.launches) == tuple(c + 1 for c in counts)
+    again = csr_spmm(csr, X, plan=plan)
+    two = TMS.carry_out_fixup(*TK._merge_spmm_partials(plan, X, m))
+    torch.cuda.synchronize()
+    assert torch.equal(got, two) and torch.equal(got, again)
+    y, cr, cv = TMS.merge_partials_plain(plan, X, m)
+    _close(got, TMS.carry_out_fixup_plain(y, cr, cv))
+    _close(got, spmm_ref(coo, X))
+    if k != 1:
+        return
+    x = X[:, 0].contiguous()
+    names.clear()
+    counts = (TMS.merge_spmv_fused.calls, TMS.merge_spmv_partials.launches,
+              TMS.carry_out_fixup.launches)
+    got = TOPS.merge_spmv(csr, x, plan=plan)
+    assert names == ["merge_spmv_launch"]
+    assert (TMS.merge_spmv_fused.calls, TMS.merge_spmv_partials.launches,
+            TMS.carry_out_fixup.launches) == tuple(c + 1 for c in counts)
+    again = TOPS.merge_spmv(csr, x, plan=plan)
+    two = TMS.carry_out_fixup(*TMS.merge_spmv_partials(plan, x, m))
+    torch.cuda.synchronize()
+    assert torch.equal(got, two) and torch.equal(got, again)
+    y, cr, cv = TMS.merge_partials_plain(plan, x[:, None], m)
+    _close(got, TMS.carry_out_fixup_plain(y, cr, cv)[:, 0])
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 33])
+def test_carry_step_on_long_runs_with_empty_spans(cuda, k):
+    """The standalone carry step on carries with one row across 300 spans
+    that holds empty spans ((-1, -1) pairs) inside its run, runs ending at
+    every offset of a step and a run reaching the last entry: against its
+    plain version, two launches bitwise equal."""
+    rows, r = [0, 1], 1
+    for i in range(300):
+        rows += [-1, -1] if i % 29 == 3 else [r, -1]
+    for length in range(1, 40):
+        r += 1
+        rows += [r, -1] * length + [r, r + 1]
+        r += 1
+    rows += [r] * 64
+    carry_row = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    carry_val = torch.randn((len(rows), k), device=cuda)
+    carry_val[carry_row < 0] = 0
+    y0 = torch.randn((r + 1, k), device=cuda)
+    got = TMS.carry_out_fixup(y0.clone(), carry_row, carry_val)
+    again = TMS.carry_out_fixup(y0.clone(), carry_row, carry_val)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, TMS.carry_out_fixup_plain(y0.clone(), carry_row, carry_val))
 
 
 # --------------------------------------------------------------------------
