@@ -17,8 +17,11 @@ serves granite-moe-1b-a400m at full width (``serve --mode lm``:
 prefill + greedy decode with KV caches, the MoE layers through the
 grouped-GEMM kernel K9), serves three tenants through the fleet
 (``serve --mode fleet``, one card and a mesh that loses a position),
-runs the autotuner and PageRank, shows through the wrappers' launch
-counters that
+runs the autotuner and PageRank, serves mamba2-1.3b at full width (the
+Mamba-2 SSM mixer, checked against its naive recurrence) and the jamba
+hybrid through K9, trains mamba2-1.3b at full width with checkpoints and
+a resume, runs the ``train_lm`` example's sparse-mixer phase (K1 forward,
+K3 backward), shows through the wrappers' launch counters that
 each path went through its kernels, and prints one JSON line per kernel
 table and a final status line:
 
@@ -174,7 +177,38 @@ Phases:
      ``repro_torch.examples.pagerank`` at rmat scale 20 (K2 and the carry
      step before its swap to SELL-C-σ, K1 after: the operator multiplies
      a vector as a one-column SpMM, as the reference's does; both rank
-     vectors within 1e-5).
+     vectors within 1e-5);
+ 13. the SSM mixer and training, with the float32 matmul precision they
+     ran at printed first: ``serve --mode lm --arch mamba2-1.3b --batch 8
+     --prompt-len 512 --gen 16 --seed 0`` (48 layers, d_model 2048, 1.34e9
+     random parameters; 4 layers and a 64-token prompt with --quick):
+     prefill ms, decode ms a step, tok/s, peak memory; layer 0's chunked
+     ``ssm_forward`` against ``ssm_forward_naive`` in float32 (``1e-4 *
+     max(1, max|naive|)``); for rows 0-1 the serving path (``prefill`` +
+     3 greedy ``decode_step``s) in float32 compute against the naive
+     recurrence through all 48 layers, teacher-forced (``1e-4 * max(1,
+     max|naive|)`` on the logits, tokens equal unless the naive top two
+     are within that; the same decode from caches whose conv state was
+     rounded to bf16 reported beside it), and the served run itself
+     (bf16 compute, its prefill and decode logits) against the naive
+     recurrence in bf16 (``1e-1 * max(1, max|naive|)``: bf16 paths drift
+     apart with depth); ``torch.profiler`` over one prefill and one
+     decode step; ``serve --mode lm --arch jamba-1.5-large-398b
+     --reduced`` with ``--impl kernel`` against ``--impl plain`` (the
+     prefill's and each decode step's logits within ``1e-2 * max(1,
+     max|plain|)`` while the tokens fed agree, K9's tiled and decode
+     kernels launched, none by the plain run); ``launch.train`` on
+     mamba2-1.3b at full width, 4 AdamW steps at batch 4, seq 512 with
+     ``--save-every 2`` (losses, ms a step, tokens/s, peak memory), then
+     step 4's commit is taken back, a fresh ``Supervisor`` restores step
+     2 into newly drawn parameters and steps 2-3 run again (the first
+     profiled): their losses within 1e-3 relative of the first run's;
+     the ``train_lm`` example's sparse-mixer phase on the card
+     (``sparse_matmul`` through the operator's installed plan: the launch
+     counters that moved), its plan's forward and transpose multiply
+     against their plain versions at its width (k = 16), and each of its
+     60 losses against the same phase through the plain versions
+     (``1e-4 * max(1, loss0)``).
 
 Bound: ``bound_ms`` is the larger of the bytes the SpMM function needs
 (CSR values and columns per nonzero, one row offset per row, X read once,
@@ -220,7 +254,7 @@ ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
 latency, batcher phases and conversion times; the symmetric, GMRES and
 autograd phases; the mesh phase; the LM phase; the fleet and autotune
-phases), the card line, the
+phases; the SSM and training phase), the card line, the
 ``kernels`` JSON
 line and the status
 line. K3's ``launches`` there is the sum over the GMRES and autograd
@@ -2397,14 +2431,65 @@ def moe_layer_check(res) -> dict:
     return worst
 
 
-def profile_lm(res, steps: int = 3) -> dict:
-    """Device time by kernel over one prefill and ``steps`` decode steps
-    of the served model (``torch.profiler``, device kernels only), K9's
-    share of it, and the device's idle share of the same work timed
-    without the profiler (synchronized host clock). Returns "not
-    measured" entries if the profiler gives no device times."""
+def profile_device(fn):
+    """(profile, fn()) for one call under ``torch.profiler`` with device
+    activity only: the device kernels' busy ms, their launches, K9's ms
+    and the top 8 kernels; "not measured" if the trace has no device
+    times. A training step's ~5 x 10^4 launches with their CPU op events
+    take ~40 s to aggregate, its kernels alone a few seconds; one decode
+    step counts the same launches either way."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def kernel_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    ka = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel_us(e) > 0]
+    busy = sum(kernel_us(e) for e in ka) / 1e3
+    if busy <= 0:
+        return {"not_measured": "no device times in the trace"}, result
+    k9 = sum(kernel_us(e) for e in ka if "moe_group_matmul" in e.key) / 1e3
+    top = sorted(ka, key=kernel_us, reverse=True)[:8]
+    return {"device_busy_ms": busy, "k9_ms": k9,
+            "k9_share_of_busy": k9 / busy,
+            "kernel_launches": int(sum(e.count for e in ka)),
+            "top": [{"kernel": e.key[:80], "ms": kernel_us(e) / 1e3,
+                     "count": int(e.count)} for e in top]}, result
+
+
+def print_profile(label: str, o: dict, wall_ms: float) -> dict:
+    """Adds the unprofiled wall time and the idle share to a
+    ``profile_device`` result, prints it and returns it."""
+    if "not_measured" in o:
+        print(f"[chip_smoke]   profile {label}: not measured "
+              f"({o['not_measured']})", flush=True)
+        return o
+    o["wall_ms"] = wall_ms
+    o["idle_share"] = max(0.0, 1 - o["device_busy_ms"] / wall_ms)
+    print(f"[chip_smoke]   profile {label}: wall {wall_ms:.2f} ms "
+          f"unprofiled, device kernels {o['device_busy_ms']:.2f} ms (idle "
+          f"{o['idle_share']:.3f}), K9 {o['k9_ms']:.2f} ms "
+          f"({o['k9_share_of_busy']:.3f} of busy), {o['kernel_launches']} "
+          f"kernel launches", flush=True)
+    for t in o["top"]:
+        print(f"[chip_smoke]     {t['ms']:9.3f} ms x{t['count']:<5} "
+              f"{t['kernel']}", flush=True)
+    return o
+
+
+def profile_lm(res, steps: int = 3) -> dict:
+    """Device time by kernel over one prefill and ``steps`` decode steps
+    of the served model (``profile_device``), K9's share of it, and the
+    device's idle share of the same work timed without the profiler
+    (synchronized host clock)."""
+    import torch
     from repro_torch.models.model import decode_step, prefill
 
     params, cfg = res["params"], res["cfg"]
@@ -2425,10 +2510,6 @@ def profile_lm(res, steps: int = 3) -> dict:
                                               state["caches"], pos)
             state["tok"] = lg.argmax(-1)[:, None].to(torch.int32)
 
-    def kernel_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     out = {}
     for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
         torch.cuda.synchronize()
@@ -2437,40 +2518,11 @@ def profile_lm(res, steps: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            # device kernels only: an operator's row repeats its kernels'
-            ka = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and kernel_us(e) > 0]
+            o, _ = profile_device(fn)
         except Exception as exc:   # instrumentation only: report, go on
-            out[name] = {"not_measured": f"{type(exc).__name__}: {exc}"}
-            continue
-        busy = sum(kernel_us(e) for e in ka) / 1e3
-        if busy <= 0:
-            out[name] = {"not_measured": "no device times in the trace"}
-            continue
-        k9 = sum(kernel_us(e) for e in ka
-                 if "moe_group_matmul" in e.key) / 1e3
-        top = sorted(ka, key=kernel_us, reverse=True)[:8]
-        o = out[name] = {
-            "steps": 1 if name == "prefill" else steps, "wall_ms": wall_ms,
-            "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy
-                                                      / wall_ms),
-            "k9_ms": k9, "k9_share_of_busy": k9 / busy,
-            "kernel_launches": int(sum(e.count for e in ka)),
-            "top": [{"kernel": e.key[:80], "ms": kernel_us(e) / 1e3,
-                     "count": int(e.count)} for e in top]}
-        print(f"[chip_smoke]   profile {name} x{o['steps']}: wall "
-              f"{wall_ms:.2f} ms unprofiled, device kernels {busy:.2f} ms "
-              f"(idle {o['idle_share']:.3f}), K9 {k9:.2f} ms "
-              f"({o['k9_share_of_busy']:.3f} of busy), "
-              f"{o['kernel_launches']} kernel launches", flush=True)
-        for t in o["top"]:
-            print(f"[chip_smoke]     {t['ms']:9.3f} ms x{t['count']:<5} "
-                  f"{t['kernel']}", flush=True)
+            o = {"not_measured": f"{type(exc).__name__}: {exc}"}
+        o["steps"] = 1 if name == "prefill" else steps
+        out[name] = print_profile(f"{name} x{o['steps']}", o, wall_ms)
     return out
 
 
@@ -2663,6 +2715,417 @@ def run_autotune(scale: float, rmat_scale: int, reps: int) -> dict:
     return out
 
 
+# phase 13: the Mamba-2 SSM mixer served and trained at full width
+SSM_ARCH = "mamba2-1.3b"
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 512, 16
+SSM_NAIVE_ROWS, SSM_NAIVE_TOKENS = 2, 4
+# float32 serving path vs the naive recurrence: on an H100, max|logit|
+# 4.77, it reads 6.39e-05, and 0.0257 with the conv state rounded to bf16
+SSM_TOL_REL = 1e-4
+# the served bf16 run vs the naive recurrence in bf16: 0.195 and 0.212 in
+# two H100 runs, max|logit| 4.74
+SSM_BF16_TOL_REL = 1e-1
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE = 4, 512, 4, 2
+TRAIN_LR = 1e-3          # train.py's default --lr
+TRAIN_REL = 1e-3         # resumed losses vs the uninterrupted run
+MIXER_K = 16             # the sparse-mixer phase's width (its d_out)
+
+
+def naive_lm_logits(params, cfg, tokens):
+    """The SSM stack's logits at every position of ``tokens`` with every
+    mixer run as ``ssm_forward_naive`` (one ``ssm_decode`` a token from a
+    zero cache), in the config's compute dtype."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.ssm import ssm_forward_naive
+    with torch.no_grad():
+        h = M.embed_inputs(cfg, params, tokens)
+        for l, lp in enumerate(params["layers"]):
+            mixer, mlp = M.layer_kinds(cfg, l)
+            if mixer != "ssm":
+                raise ValueError("the naive check runs SSM stacks only")
+            hn = M._norm(cfg, lp["norm1"], h)
+            h = h + ssm_forward_naive(lp["mixer"], cfg.ssm_config(), hn)
+            h, _ = M._mlp_block(cfg, lp, mlp, h)
+        h = M._norm(cfg, params["final_norm"], h)
+        return M.logits_from_hidden(params, cfg, h)
+
+
+def ssm_serve_checks(res) -> dict:
+    """Layer 0's chunked ``ssm_forward`` against ``ssm_forward_naive`` in
+    float32 on the served prompts' first rows. Then, for
+    ``SSM_NAIVE_ROWS`` rows of the served prompts: the serving path
+    (``prefill`` and ``SSM_NAIVE_TOKENS - 1`` greedy ``decode_step``s) in
+    float32 compute against the naive recurrence through the whole stack
+    in float32, teacher-forced on its tokens, held to ``SSM_TOL_REL``;
+    beside it, the same decode steps from caches whose conv state was
+    rounded to bf16 after prefill (the fault the check must see),
+    reported. Last, the served run itself (the config's bf16 compute, the
+    path that is timed): its prefill and decode logits against the naive
+    recurrence in bf16, teacher-forced on the served tokens, held to
+    ``SSM_BF16_TOL_REL``: bf16 rounds each layer's activations, and a
+    product summed in another order rounds to the neighbouring bf16 value
+    now and then, so the two bf16 paths drift apart with depth."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.ssm import ssm_forward, ssm_forward_naive
+
+    params, cfg = res["params"], res["cfg"]
+    rows = res["prompts"][:SSM_NAIVE_ROWS]
+    P, n = rows.shape[1], SSM_NAIVE_TOKENS
+    out = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lp = params["layers"][0]
+        u = M._norm(cfg, lp["norm1"], params["embed"][rows].float())
+        chunked = ssm_forward(lp["mixer"], cfg.ssm_config(), u)
+        naive = ssm_forward_naive(lp["mixer"], cfg.ssm_config(), u)
+    err = max_err(chunked, naive)
+    tol = TOL_REL * max(1.0, float(naive.abs().max()))
+    out["layer0_f32"] = {"max_abs_err": err, "tol": tol}
+    print(f"[chip_smoke]   mamba2 layer 0 chunked ssm_forward vs "
+          f"ssm_forward_naive (float32, {SSM_NAIVE_ROWS} x {P} tokens): "
+          f"max_abs_err {err:.3g} (tol {tol:.3g})", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"chunked vs naive SSM: {err:.3g} > {tol:.3g}")
+
+    def decode(cfg_, caches, lg, feed=None):
+        """Logits [rows, n, vocab] of prefill's ``lg`` and n - 1 decode
+        steps, each fed its own argmax or ``feed[:, i]``."""
+        logits, toks = [lg], [lg.argmax(-1)]
+        for i in range(n - 1):
+            pos = torch.full((SSM_NAIVE_ROWS,), P + i, dtype=torch.int32,
+                             device=rows.device)
+            tok = toks[-1] if feed is None else feed[:, i]
+            lg, caches = M.decode_step(params, cfg_, tok[:, None].to(
+                torch.int32), caches, pos)
+            logits.append(lg)
+            toks.append(lg.argmax(-1))
+        return torch.stack(logits, 1), torch.stack(toks, 1)
+
+    # the serving path in float32 on these rows, and the same from caches
+    # with the conv state rounded to bf16
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    lg, caches = M.prefill(params, f32, rows, P + n,
+                           cache_dtype=torch.float32)
+    rounded = [type(c)(c.conv_state.to(torch.bfloat16).float(),
+                       c.ssm_state.clone()) for c in caches]
+    served, toks = decode(f32, caches, lg)
+    faulty, _ = decode(f32, rounded, lg, feed=toks)
+    naive = naive_lm_logits(params, f32, torch.cat(
+        [rows, toks[:, :-1].to(rows.dtype)], dim=1))[:, P - 1:]
+    err, fault = max_err(served, naive), max_err(faulty, naive)
+    tol = SSM_TOL_REL * max(1.0, float(naive.abs().max()))
+    top2 = naive.topk(2, dim=-1).values
+    differ = naive.argmax(-1) != toks
+    # a token may differ only at a near-tie of the naive top two
+    bad = differ & (top2[..., 0] - top2[..., 1] > tol)
+    out["model_f32"] = {"max_abs_err": err, "tol": tol,
+                        "max_abs": float(naive.abs().max()),
+                        "conv_state_bf16_max_abs_err": fault,
+                        "tokens_equal": int((~differ).sum()),
+                        "tokens_checked": int(differ.numel())}
+    print(f"[chip_smoke]   mamba2 prefill + {n - 1} decode steps vs the "
+          f"naive recurrence ({cfg.n_layers} layers, float32 compute, rows"
+          f" 0-{SSM_NAIVE_ROWS - 1}, {n} positions): logits max_abs_err "
+          f"{err:.3g} (tol {tol:.3g}; the conv state rounded to bf16 after "
+          f"prefill: {fault:.3g}); tokens equal "
+          f"{out['model_f32']['tokens_equal']}/{differ.numel()}", flush=True)
+    if not err <= tol or bool(bad.any()):
+        raise AssertionError(f"mamba2 float32 serve vs naive: logits "
+                             f"{err:.3g} (tol {tol:.3g}), tokens "
+                             f"{toks.tolist()} vs "
+                             f"{naive.argmax(-1).tolist()}")
+    if not fault > tol:
+        raise AssertionError(f"the float32 check cannot see a conv state "
+                             f"rounded to bf16: {fault:.3g} <= {tol:.3g}")
+    f32_prefill = served[:, 0]
+    del caches, rounded, served, faulty, naive
+
+    # the served run (bf16 compute) against the naive recurrence in bf16
+    gen = torch.from_numpy(res["tokens"][:SSM_NAIVE_ROWS, :n]).to(
+        rows.device)
+    served = torch.cat([res["prefill_logits"][:SSM_NAIVE_ROWS, None],
+                        res["decode_logits"][:SSM_NAIVE_ROWS, :n - 1]], 1)
+    naive = naive_lm_logits(params, cfg, torch.cat(
+        [rows, gen[:, :-1].to(rows.dtype)], dim=1))[:, P - 1:]
+    err = max_err(served, naive)
+    tol = SSM_BF16_TOL_REL * max(1.0, float(naive.abs().max()))
+    top2 = naive.topk(2, dim=-1).values
+    differ = naive.argmax(-1) != gen
+    bad = differ & (top2[..., 0] - top2[..., 1] > tol)
+    out["model_bf16"] = {
+        "max_abs_err": err, "tol": tol, "max_abs": float(naive.abs().max()),
+        "tokens_equal": int((~differ).sum()),
+        "tokens_checked": int(differ.numel()),
+        "prefill_vs_f32_max_abs_err": max_err(served[:, 0], f32_prefill),
+        "first_tokens_equal_f32": int((gen == toks).sum()),
+        "checks_s": time.perf_counter() - t0}
+    o = out["model_bf16"]
+    print(f"[chip_smoke]   mamba2 served run (bf16 compute, batch "
+          f"{res['prompts'].shape[0]}) vs the naive recurrence in bf16 (rows "
+          f"0-{SSM_NAIVE_ROWS - 1}, {n} positions): logits max_abs_err "
+          f"{err:.3g} (tol {tol:.3g}); tokens equal {o['tokens_equal']}/"
+          f"{differ.numel()}; against the float32 path: prefill logits "
+          f"{o['prefill_vs_f32_max_abs_err']:.3g}, first {n} tokens equal "
+          f"{o['first_tokens_equal_f32']}/{gen.numel()}; checks "
+          f"{o['checks_s']:.1f} s", flush=True)
+    if not err <= tol or bool(bad.any()):
+        raise AssertionError(f"mamba2 bf16 serve vs naive: logits "
+                             f"{err:.3g} (tol {tol:.3g}), tokens "
+                             f"{gen.tolist()} vs {naive.argmax(-1).tolist()}")
+    return out
+
+
+def run_ssm_train(quick: bool) -> dict:
+    """Phase 13: serve mamba2-1.3b at full width and check it against the
+    naive recurrence, serve jamba reduced through K9 and its plain
+    version, train mamba2-1.3b at full width with checkpoints and resume
+    from the first in a fresh ``Supervisor`` (the steps after it re-run
+    with the same step function, the first of them profiled), and run the
+    ``train_lm`` example's sparse-mixer phase."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.runtime import Supervisor
+
+    t_phase = time.perf_counter()
+    precision = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                 "float32_matmul_precision":
+                     torch.get_float32_matmul_precision()}
+    print(f"[chip_smoke] phase 13: float32 matmuls and einsums (the SSM "
+          f"scan, loss_fn's logits) at {precision}", flush=True)
+    out = {"precision": precision, "marks_s": {}}
+
+    def mark(label):
+        out["marks_s"][label] = time.perf_counter() - t_phase
+        print(f"[chip_smoke]   +{out['marks_s'][label]:.1f} s: {label}",
+              flush=True)
+
+    # 13.1 serve mamba2-1.3b at full width
+    batch, prompt, gen_len = ((2, 64, 4) if quick else
+                              (SSM_BATCH, SSM_PROMPT, SSM_GEN))
+    argv = ["--mode", "lm", "--arch", SSM_ARCH, "--batch", str(batch),
+            "--prompt-len", str(prompt), "--gen", str(gen_len), "--seed",
+            "0"] + (["--n-layers", "4"] if quick else [])
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = run_counted(lambda: serve.main(argv))
+    cfg = res["cfg"]
+    tok, logits = res["tokens"], res["prefill_logits"]
+    if tok.shape != (batch, gen_len) or not bool(
+            ((tok >= 0) & (tok < cfg.vocab)).all()) or not bool(
+                torch.isfinite(logits).all()):
+        raise AssertionError("serve --mode lm mamba2: malformed output")
+    serve_row = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_params": res["n_params"], "batch": batch, "prompt": prompt,
+        "gen": gen_len, "prefill_ms": res["t_prefill"] * 1e3,
+        "decode_ms_per_step": res["t_decode"] * 1e3 / (gen_len - 1),
+        "tok_per_s": res["tok_per_s"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": {k: v for k, v in counts.items() if v}}
+    print(f"[chip_smoke] serve --mode lm --arch {SSM_ARCH} ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {res['n_params']} params): "
+          f"prefill {serve_row['prefill_ms']:.1f} ms, decode "
+          f"{serve_row['decode_ms_per_step']:.2f} ms/step, "
+          f"{serve_row['tok_per_s']:.1f} tok/s, peak "
+          f"{serve_row['peak_gib']:.2f} GiB; kernel launches "
+          f"{serve_row['launches'] or 'none (plain torch)'}", flush=True)
+    mark("mamba2 served")
+    serve_row["checks"] = ssm_serve_checks(res)
+    mark("checks")
+    serve_row["profile"] = profile_lm(res, steps=1)
+    mark("profile")
+    out["serve"] = serve_row
+    del res, logits
+    torch.cuda.empty_cache()
+
+    # 13.2 the jamba hybrid, reduced: K9 against its plain version
+    jargv = ["--mode", "lm", "--arch", "jamba-1.5-large-398b", "--reduced",
+             "--batch", "4", "--prompt-len", "32", "--gen", "8", "--seed",
+             "0"]
+    runs = {}
+    for impl in ("kernel", "plain"):
+        r, c = run_counted(lambda: serve.main(jargv + ["--impl", impl]))
+        runs[impl] = (r, c)
+    (rk, ck), (rp, cp) = runs["kernel"], runs["plain"]
+    # the prefill's and every decode step's logits; each run feeds its own
+    # tokens, so a step is compared where the tokens fed so far agree, and
+    # a token may differ only at a near-tie of the plain run's top two
+    lk, lp = (torch.cat([r["prefill_logits"][:, None], r["decode_logits"]],
+                        1) for r in (rk, rp))
+    tk, tp = (torch.from_numpy(r["tokens"]).to(lk.device) for r in (rk, rp))
+    agree = torch.cumprod((tk == tp).int(), 1).bool()
+    fed = torch.cat([torch.ones_like(agree[:, :1]), agree[:, :-1]], 1)
+    err = float((lk - lp).abs().amax(-1)[fed].max())
+    tol = LAYER_TOL_REL * max(1.0, float(lp.abs().max()))
+    top2 = lp.topk(2, dim=-1).values
+    bad = fed & (tk != tp) & (top2[..., 0] - top2[..., 1] > tol)
+    k9 = {k: ck[k] for k in ("K9", "K9d", "K9w")}
+    out["jamba"] = {"max_abs_err": err, "tol": tol,
+                    "steps_compared": int(fed.sum()),
+                    "steps": int(fed.numel()),
+                    "tokens_equal": bool(torch.equal(tk, tp)),
+                    "launches_kernel": k9,
+                    "launches_plain": {k: cp[k] for k in k9}}
+    print(f"[chip_smoke] serve jamba reduced --impl kernel vs plain: prefill"
+          f" and decode logits max_abs_err {err:.3g} (tol {tol:.3g}) over "
+          f"{out['jamba']['steps_compared']}/{out['jamba']['steps']} row "
+          f"steps; tokens equal {out['jamba']['tokens_equal']}; K9 launches "
+          f"{k9} (plain {out['jamba']['launches_plain']})", flush=True)
+    if not err <= tol or bool(bad.any()):
+        raise AssertionError(f"jamba kernel vs plain: {err:.3g} (tol "
+                             f"{tol:.3g}), tokens {tk.tolist()} vs "
+                             f"{tp.tolist()}")
+    if ck["K9"] <= 0 or ck["K9d"] <= 0 or any(out["jamba"]["launches_plain"]
+                                               .values()):
+        raise AssertionError(f"jamba serve: K9 launches {k9}, plain "
+                             f"{out['jamba']['launches_plain']}")
+    del runs, rk, rp
+    torch.cuda.empty_cache()
+    mark("jamba")
+
+    # 13.3 train mamba2-1.3b at full width, save, resume in a fresh
+    # Supervisor from step TRAIN_SAVE and re-run the steps after it
+    tb, ts = (2, 64) if quick else (TRAIN_BATCH, TRAIN_SEQ)
+    targv = ["--arch", SSM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+             str(tb), "--seq", str(ts), "--optimizer", "adamw",
+             "--save-every", str(TRAIN_SAVE), "--seed", "0",
+             "--lr", str(TRAIN_LR)] + (["--reduced"] if quick else [])
+    with tempfile.TemporaryDirectory() as ck:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r1 = train.main(targv + ["--ckpt-dir", ck])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tcfg = r1["cfg"]
+        losses1, step_s = r1["losses"], r1["step_s"]
+        n_params = tcfg.param_count(r1["state"].params)
+        del r1
+        torch.cuda.empty_cache()
+        mark("trained")
+
+        opt = make_optimizer("adamw", warmup_cosine(
+            TRAIN_LR, max(TRAIN_STEPS // 10, 1), TRAIN_STEPS))
+        params = init_params(torch.Generator(device="cuda").manual_seed(1),
+                             tcfg)
+        state = TrainState(params, opt.init(params))
+        del params
+        # the last commit is taken back, as if the run had died before
+        # it: a fresh Supervisor resumes from the one before
+        os.remove(os.path.join(ck, f"step_{TRAIN_STEPS:08d}.COMMITTED"))
+        t0 = time.perf_counter()
+        state, start = Supervisor(ck).restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mark("restored")
+    pipe = TokenPipeline(vocab=tcfg.vocab, batch=tb, seq=ts, seed=0)
+    step_fn = make_train_step(tcfg, opt)
+    losses2, replay_s, profile = [], [], None
+    for step in range(start, TRAIN_STEPS):
+        batch = {"tokens": torch.from_numpy(
+            pipe.batch_at(step)["tokens"]).cuda()}
+        t0 = time.perf_counter()
+        if profile is None:
+            profile, (state, m) = profile_device(
+                lambda: step_fn(state, batch))
+        else:
+            state, m = step_fn(state, batch)
+        losses2.append(float(m["loss"]))
+        replay_s.append(time.perf_counter() - t0)
+    del state
+    torch.cuda.empty_cache()
+    mark("replayed")
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(losses2, losses1[start:])]
+    tokens = tb * ts
+    steady = step_s[1:] or step_s
+    out["train"] = {
+        "arch": tcfg.name, "layers": tcfg.n_layers, "n_params": n_params,
+        "batch": tb, "seq": ts, "losses": losses1,
+        "resumed_losses": losses2, "resume_rel_err": rel,
+        "step_ms": [s * 1e3 for s in step_s],
+        "tok_per_s": tokens / (sum(steady) / len(steady)),
+        "peak_gib": peak, "run_s": train_s, "restore_s": restore_s,
+        "profile_step": profile}
+    print(f"[chip_smoke] train {SSM_ARCH} ({tcfg.n_layers} layers, "
+          f"{n_params} params, batch {tb} x seq {ts}, AdamW, remat): losses "
+          f"{[round(x, 5) for x in losses1]}; step ms "
+          f"{[round(s * 1e3, 1) for s in step_s]} ("
+          f"{out['train']['tok_per_s']:.0f} tok/s after the first); peak "
+          f"{peak:.2f} GiB; run {train_s:.1f} s with 2 checkpoints; "
+          f"restore {restore_s:.1f} s; resumed from step {start}: "
+          f"{[round(x, 5) for x in losses2]}, rel err "
+          f"{[f'{x:.2g}' for x in rel]}", flush=True)
+    # the idle share against the next (unprofiled) step's wall time
+    print_profile(f"train step {start}", profile, replay_s[-1] * 1e3)
+    if start != TRAIN_SAVE or len(losses2) != TRAIN_STEPS - TRAIN_SAVE or not all(
+            np.isfinite(losses1)) or max(rel) > TRAIN_REL:
+        raise AssertionError(f"resumed losses {losses2} vs {losses1}")
+
+    # 13.4 the train_lm example's sparse-mixer phase, then its kernels
+    # against their plain versions at its shapes (these launches are not
+    # counted) and the same phase through the plain versions
+    from repro_torch.spmm import spmm
+    from repro_torch.spmm.sellcs import SellCS
+    mix, counts = run_counted(lambda: train_lm.sparse_mixer_phase("cuda"))
+    moved = {k: v for k, v in counts.items() if v}
+    op = mix["op"]
+    mat = op.plan.matrix
+    X = torch.randn((op.shape[1], MIXER_K), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    pairs = [("forward", op.plan.multiply(X), spmm(mat, X, impl="plain"))]
+    if isinstance(mat, SellCS):
+        pairs.append(("transpose", op.plan.multiply_t(X),
+                      spmm(mat, X, impl="plain", op="T")))
+    checks = {label: {"max_abs_err": max_err(y, ref),
+                      "tol": tol_of(ref)} for label, y, ref in pairs}
+    plain = train_lm.sparse_mixer_phase("cuda", impl="plain")
+    loss_err = max(abs(a - b) for a, b in zip(mix["losses"],
+                                              plain["losses"]))
+    loss_tol = TOL_REL * max(1.0, abs(plain["loss0"]))
+    out["sparse_mixer"] = {"loss0": mix["loss0"], "loss": mix["loss"],
+                           "plan": mix["plan"], "launches": moved,
+                           "multiplies": mix["stats"].multiplies,
+                           "kernel_vs_plain": checks,
+                           "loss_vs_plain_max_abs_err": loss_err,
+                           "loss_tol": loss_tol}
+    print(f"[chip_smoke] train_lm sparse-mixer phase: plan {mix['plan']}, "
+          f"loss {mix['loss0']:.4f} -> {mix['loss']:.4g}, "
+          f"{mix['stats'].multiplies} multiplies; launches {moved}; at k = "
+          f"{MIXER_K} against the plain versions: "
+          + ", ".join(f"{k} {v['max_abs_err']:.3g} (tol {v['tol']:.3g})"
+                      for k, v in checks.items())
+          + f"; each step's loss against the plain run's: max_abs_err "
+          f"{loss_err:.3g} (tol {loss_tol:.3g})", flush=True)
+    if not mix["loss"] < 0.1 * mix["loss0"]:
+        raise AssertionError("sparse-mixer phase failed to learn")
+    if mix["plan"].startswith("sellcs") and not (counts["K1"] > 0
+                                                 and counts["K3"] > 0):
+        raise AssertionError(f"sparse-mixer phase: K1/K3 never launched "
+                             f"({moved})")
+    if not moved:
+        raise AssertionError("sparse-mixer phase launched no kernel")
+    if not (all(v["max_abs_err"] <= v["tol"] for v in checks.values())
+            and len(plain["losses"]) == len(mix["losses"])
+            and loss_err <= loss_tol):
+        raise AssertionError(f"sparse-mixer kernels vs plain: {checks}, "
+                             f"losses {loss_err:.3g} > {loss_tol:.3g}")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke] ssm/train phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _csr_parts(coo):
     """(crow, col, val) of the library's CSR of ``coo`` (a baseline only)."""
     from repro_torch.core import coo_to_csr
@@ -2798,6 +3261,11 @@ def main(argv=None) -> int:
 
     # phase 12: the autotuner and its break-even, then PageRank
     tune_row = run_autotune(8.0 / div, 14 if args.quick else 20, reps)
+    torch.cuda.empty_cache()
+
+    # phase 13: the SSM mixer served and trained (mamba2-1.3b), the jamba
+    # hybrid through K9, the train_lm example's sparse-mixer phase
+    ssm_row = run_ssm_train(args.quick)
 
     launches = {"K1": counts_a["K1"], "K2": counts_b["K2"],
                 "K3": gmres_row["launches"]["K3"]
@@ -2835,7 +3303,7 @@ def main(argv=None) -> int:
                       "symmetric": sym_row, "gmres": gmres_row,
                       "autograd": grad_row, "blocked": blocked_row,
                       "mesh": mesh_row, "lm": lm_row, "fleet": fleet_rows,
-                      "autotune": tune_row}))
+                      "autotune": tune_row, "ssm": ssm_row}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -154,7 +154,8 @@ def lm_params_from_arrays(tree: Mapping, cfg: ModelConfig,
                           device: DeviceLike = None) -> ParamTree:
     """The reference's LM parameters as the port's module tree: each
     ``groups[slot][leaf][g]`` (stacked over groups) becomes a leaf of
-    layer ``g * group_size + slot``; ``embed``, ``final_norm`` and, where
+    layer ``g * group_size + slot`` (nested leaves such as an SSM mixer's
+    ``conv: {w, b}`` included); ``embed``, ``final_norm`` and, where
     present, ``unembed`` and ``vision_proj`` carry over as they are."""
     dev = resolve_device(device)
     groups = tree["groups"]
@@ -165,4 +166,4 @@ def lm_params_from_arrays(tree: Mapping, cfg: ModelConfig,
     out = {k: _tree_t(v, dev) for k, v in tree.items() if k != "groups"}
     out["layers"] = [_tree_t(groups[l % gs], dev, l // gs)
                      for l in range(cfg.n_layers)]
-    return ParamTree(out)
+    return ParamTree(out, gs)

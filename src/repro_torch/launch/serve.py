@@ -65,8 +65,9 @@ matrix; a miss raises:
       --tenants 3 --devices 4 --mesh-devices cpu,cpu,cpu,cpu \
       --fail-device auto --scale 0.02 --impl plain
 
-LM mode — batched prefill + greedy decode with KV caches, random weights
-from ``--seed``, the port of ``repro.launch.serve``'s LM branch. The MoE
+LM mode — batched prefill + greedy decode with KV caches and SSM states
+(attention, Mamba-2 and hybrid stacks), random weights from ``--seed``,
+the port of ``repro.launch.serve``'s LM branch. The MoE
 layers multiply through the grouped-GEMM kernel K9 (``--impl auto`` or
 ``kernel`` on the card; ``plain`` = its plain PyTorch version; ``ref`` =
 the per-expert product, the reference's ``ragged_dot`` route, which
@@ -77,6 +78,9 @@ the per-expert product, the reference's ``ragged_dot`` route, which
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
       --arch granite-moe-1b-a400m --reduced --device cpu --impl plain
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+      --arch mamba2-1.3b --batch 8 --prompt-len 512 --gen 16
 """
 from __future__ import annotations
 
@@ -815,8 +819,9 @@ def serve_lm(args) -> dict:
     """Prefill ``--batch`` random prompts of ``--prompt-len`` tokens, then
     ``--gen`` - 1 greedy decode steps (argmax, the first index on ties).
     Returns the generated tokens [B, gen] and what a caller checks: the
-    parameters, the prompts, the prefill logits, the config and the
-    synchronized host times."""
+    parameters, the prompts, the prefill logits, each decode step's
+    logits ``[B, gen - 1, vocab]``, the config and the synchronized host
+    times."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -864,7 +869,7 @@ def serve_lm(args) -> dict:
     prefill_logits = logits
 
     tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-    out_tokens = [tok]
+    out_tokens, decode_logits = [tok], []
     t0 = time.perf_counter()
     for i in range(G - 1):
         pos = torch.full((B,), offset + P + i, dtype=torch.int32,
@@ -872,6 +877,7 @@ def serve_lm(args) -> dict:
         logits, caches = decode_step(params, cfg, tok, caches, pos)
         tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         out_tokens.append(tok)
+        decode_logits.append(logits)
     sync()
     t_decode = time.perf_counter() - t0
 
@@ -887,6 +893,9 @@ def serve_lm(args) -> dict:
         raise AssertionError("generated a token outside the vocabulary")
     return {"tokens": gen, "params": params, "n_params": n_params,
             "prompts": prompts, "prefill_logits": prefill_logits,
+            "decode_logits": (torch.stack(decode_logits, 1) if decode_logits
+                              else prefill_logits.new_zeros(
+                                  (B, 0, cfg.vocab))),
             "cfg": cfg, "S_max": S_max, "t_prefill": t_prefill,
             "t_decode": t_decode, "tok_per_s": tps}
 

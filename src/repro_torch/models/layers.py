@@ -100,6 +100,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # short causal conv (Mamba)
 # ---------------------------------------------------------------------------
+def causal_conv1d_init(gen: torch.Generator, channels: int, width: int,
+                       dtype=torch.float32):
+    return {"w": normal(gen, (width, channels), dtype, width ** -0.5),
+            "b": torch.zeros((channels,), dtype=dtype, device=gen.device)}
+
+
 def causal_conv1d(p, x: torch.Tensor, state: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, C] -> (y [B, S, C], new_state [B, width-1, C]).

@@ -1,35 +1,42 @@
 """Composable decoder LM (the port of ``repro.models.model``): the forward
-pass and the serving path (prefill + greedy decode with KV caches).
+pass, the training loss and the serving path (prefill + greedy decode with
+per-slot caches).
 
-A model is a cycled *group* of layer slots (``ModelConfig.group_slots``).
-The reference stacks each slot's parameters over the groups and runs the
-stack under ``lax.scan``; here the parameters are a module tree with one
-module per layer (``params["layers"][l]``; layer ``l`` is slot
-``l % group_size`` of group ``l // group_size``) and the stack is a Python
-loop. The KV caches keep the reference's structure: one ``KVCache`` per
-slot, stacked over the groups (``[n_groups, B, S_max, Hkv, D]``).
+A model is a cycled *group* of layer slots (``ModelConfig.group_slots``;
+jamba = 1 attn + 7 ssm per group, MoE on every other slot). The reference
+stacks each slot's parameters over the groups and runs the stack under
+``lax.scan``; here the parameters are a module tree with one module per
+layer (``params["layers"][l]``; layer ``l`` is slot ``l % group_size`` of
+group ``l // group_size``) and the stack is a Python loop over groups,
+each group under ``torch.utils.checkpoint`` when ``cfg.remat`` and grad
+are on. The caches keep the reference's structure: one ``KVCache`` or
+``SSMCache`` per slot, stacked over the groups (``[n_groups, B, S_max,
+Hkv, D]``; ``[n_groups, B, d_conv-1, conv_ch]`` and ``[n_groups, B, H, P,
+N]``).
 
-This slice carries ``"attn"`` mixers with ``"dense"``, ``"moe"`` or
-``"none"`` MLPs, rms/ln norms, rope/sinusoidal positions and the vision
-frontend stub. The SSM mixer, the training loss and the expert-parallel
-MoE dispatch come with later slices and raise here.
+Every mixer ("attn", "ssm") and MLP ("dense", "moe", "none") of the
+reference is here, with rms/ln norms, rope/sinusoidal positions and the
+vision frontend stub. The expert-parallel MoE dispatch comes with the LM
+mesh slice and raises here.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (AttnConfig, KVCache, attention, attention_decode,
                         attn_init, prefill_cache)
 from .layers import (dense, dense_init, layernorm, layernorm_init, normal,
                      rmsnorm, rmsnorm_init)
 from .moe import MoEConfig, moe_apply, moe_init
-from .ssm import SSMConfig
+from .ssm import (SSMCache, SSMConfig, _conv_act, ssm_decode, ssm_forward,
+                  ssm_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +75,7 @@ class ModelConfig:
     # numerics
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+    remat: bool = True         # each group under torch.utils.checkpoint
     loss_chunk: int = 512
     # expert-parallel MoE dispatch ("" | "ep" | "ep_tp"): the LM mesh slice
     moe_ep: str = ""
@@ -117,21 +125,22 @@ def _lcm(a, b):
     return a * b // math.gcd(a, b)
 
 
-def _ssm_missing() -> NotImplementedError:
-    return NotImplementedError(
-        "the SSM mixer (models/ssm.py) is not ported yet: ROADMAP.md queue "
-        "1 item 3")
-
-
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module tree, indexed by name like the
     reference's parameter pytree (``p["mixer"]["wq"]["w"]``, ``"b" in
     p``); a list becomes an ``nn.ModuleList`` of trees (the layers). The
     model's tree holds ``embed``, ``final_norm``, ``layers`` (one tree per
-    layer) and ``unembed``/``vision_proj`` where the config has them."""
+    layer) and ``unembed``/``vision_proj`` where the config has them.
 
-    def __init__(self, tree: Dict[str, Any]):
+    ``group_size`` (the model's tree only) says which layers share a slot:
+    ``leaf_stacks`` gives the reference's leaves, each slot leaf as the
+    list of its layers' tensors over the groups, which the optimizers
+    update as one stacked leaf (Adafactor factors and clips across it as
+    the reference does)."""
+
+    def __init__(self, tree: Dict[str, Any], group_size: int = 0):
         super().__init__()
+        self.group_size = group_size
         for name, v in tree.items():
             if isinstance(v, torch.Tensor):
                 self.register_parameter(name, nn.Parameter(v))
@@ -145,6 +154,20 @@ class ParamTree(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def leaf_stacks(self) -> List[Tuple[str, List[torch.Tensor], bool]]:
+        """``[(name, tensors, stacked)]`` in parameter order: with a
+        ``group_size``, a leaf of layer ``l`` joins the stack of slot ``l %
+        group_size`` (named after that slot's first layer), ordered by
+        group; every other leaf stands alone."""
+        stacks: Dict[str, Tuple[List[torch.Tensor], bool]] = {}
+        for name, t in self.named_parameters():
+            parts = name.split(".")
+            stacked = bool(self.group_size) and parts[0] == "layers"
+            if stacked:
+                parts[1] = str(int(parts[1]) % self.group_size)
+            stacks.setdefault(".".join(parts), ([], stacked))[0].append(t)
+        return [(n, ts, st) for n, (ts, st) in stacks.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +211,7 @@ def _slot_init(gen, cfg: ModelConfig, mixer: str, mlp: str):
     if mixer == "attn":
         p["mixer"] = attn_init(gen, cfg.attn_config(), cfg.param_dtype)
     elif mixer == "ssm":
-        raise _ssm_missing()
+        p["mixer"] = ssm_init(gen, cfg.ssm_config(), cfg.param_dtype)
     else:
         raise ValueError(mixer)
     if mlp != "none":
@@ -220,7 +243,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> ParamTree:
     if cfg.frontend == "vision":
         params["vision_proj"] = dense_init(gen, cfg.vision_dim, cfg.d_model,
                                            dtype=cfg.param_dtype)
-    return ParamTree(params)
+    return ParamTree(params, cfg.group_size)
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +277,42 @@ def _mlp_block(cfg: ModelConfig, lp, mlp: str, h):
     return h + out, aux
 
 
+def _apply_slot(cfg: ModelConfig, lp, mixer: str, mlp: str,
+                h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    hn = _norm(cfg, lp["norm1"], h)
+    if mixer == "attn":
+        h = h + attention(lp["mixer"], cfg.attn_config(), hn)
+    else:
+        h = h + ssm_forward(lp["mixer"], cfg.ssm_config(), hn)
+    return _mlp_block(cfg, lp, mlp, h)
+
+
+def _run_groups(cfg: ModelConfig, params, h: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack, group by group; with ``cfg.remat`` and grad on,
+    each group runs under ``torch.utils.checkpoint`` (its activations are
+    recomputed in the backward pass)."""
+    slots = cfg.group_slots()
+    gs = cfg.group_size
+    layers = params["layers"]
+
+    def group_fn(g, h, aux):
+        for i, (mixer, mlp) in enumerate(slots):
+            h, a = _apply_slot(cfg, layers[g * gs + i], mixer, mlp, h)
+            aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in range(cfg.n_groups):
+        if remat:
+            h, aux = checkpoint(group_fn, g, h, aux, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            h, aux = group_fn(g, h, aux)
+    return h, aux
+
+
 def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
                  vision_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
@@ -274,15 +333,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (final-normed hidden [B, S', d], aux_loss)."""
     h = embed_inputs(cfg, params, tokens, vision_embeds)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for l, lp in enumerate(params["layers"]):
-        mixer, mlp = layer_kinds(cfg, l)
-        if mixer != "attn":
-            raise _ssm_missing()
-        h = h + attention(lp["mixer"], cfg.attn_config(),
-                          _norm(cfg, lp["norm1"], h))
-        h, a = _mlp_block(cfg, lp, mlp, h)
-        aux = aux + a
+    h, aux = _run_groups(cfg, params, h)
     h = _norm(cfg, params["final_norm"], h)
     return h, aux
 
@@ -295,34 +346,81 @@ def logits_from_hidden(params, cfg: ModelConfig,
                  ).to(torch.float32)
 
 
+def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor,
+            vision_embeds: Optional[torch.Tensor] = None,
+            loss_mask: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE, computed in sequence chunks of ``cfg.loss_chunk`` so
+    [B, S, V] logits are never materialized (vocab up to 152k); with grad
+    on, each chunk's logits are recomputed in the backward pass. Adds the
+    MoE load-balance loss."""
+    h, aux = forward(params, cfg, tokens, vision_embeds)
+    if cfg.frontend == "vision":
+        h = h[:, -tokens.shape[1]:]        # loss over text positions only
+    B, S, _ = h.shape
+    targets = tokens[:, 1:].long()         # predict t+1
+    h = h[:, :-1]
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=h.device) \
+        if loss_mask is None else loss_mask[:, 1:].to(torch.float32)
+
+    def chunk_loss(hc, tc, mc):
+        lg = logits_from_hidden(params, cfg, hc)
+        lse = torch.logsumexp(lg, dim=-1)
+        tok_lp = torch.gather(lg, -1, tc[..., None])[..., 0]
+        return ((lse - tok_lp) * mc).sum()
+
+    C = min(cfg.loss_chunk, S - 1)
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S - 1, C):
+        args = (h[:, c0:c0 + C], targets[:, c0:c0 + C], mask[:, c0:c0 + C])
+        # checkpoint: never keep a [B, C, vocab] logits chunk for backward
+        total = total + (checkpoint(chunk_loss, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+                         if remat else chunk_loss(*args))
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = total / denom + aux
+    return loss, {"ce": total / denom, "aux": aux, "tokens": denom}
+
+
 # ---------------------------------------------------------------------------
 # serving: prefill + decode with per-slot caches
 # ---------------------------------------------------------------------------
+Cache = Union[KVCache, SSMCache]
+
+
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
-               device=None) -> List[KVCache]:
-    """One cache per slot, stacked over the groups:
-    ``[n_groups, B, S_max, Hkv, D]``."""
-    caches = []
+               device=None) -> List[Cache]:
+    """One cache per slot, stacked over the groups: a ``KVCache``
+    ``[n_groups, B, S_max, Hkv, D]`` in ``dtype``, or an ``SSMCache``
+    (conv state ``[n_groups, B, d_conv-1, conv_ch]`` in ``dtype``, SSM
+    state ``[n_groups, B, H, P, N]`` in float32)."""
+    G = cfg.n_groups
+    caches: List[Cache] = []
     for mixer, _mlp in cfg.group_slots():
-        if mixer != "attn":
-            raise _ssm_missing()
-        shape = (cfg.n_groups, B, S_max, cfg.kv_heads, cfg.hd)
-        caches.append(KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                              torch.zeros(shape, dtype=dtype, device=device)))
+        if mixer == "attn":
+            shape = (G, B, S_max, cfg.kv_heads, cfg.hd)
+            caches.append(KVCache(
+                torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device)))
+        else:
+            one = SSMCache.init(B, cfg.ssm_config(), dtype, device)
+            caches.append(SSMCache(*(t.new_zeros((G,) + t.shape)
+                                     for t in one)))
     return caches
 
 
-def _layer_cache(caches: List[KVCache], cfg: ModelConfig,
-                 layer: int) -> KVCache:
+def _layer_cache(caches: List[Cache], cfg: ModelConfig, layer: int) -> Cache:
     """Views of layer ``layer``'s rows of the stacked caches."""
     g, slot = divmod(layer, cfg.group_size)
-    return KVCache(caches[slot].k[g], caches[slot].v[g])
+    c = caches[slot]
+    return type(c)(*(t[g] for t in c))
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
-                caches: List[KVCache], pos: torch.Tensor
-                ) -> Tuple[torch.Tensor, List[KVCache]]:
+                caches: List[Cache], pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[Cache]]:
     """token [B, 1] int; pos [B] int -> (logits f32 [B, vocab], caches).
     The caches are updated in place and returned."""
     h = params["embed"][token].to(cfg.compute_dtype)
@@ -331,11 +429,15 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                                )[:, None].to(h.dtype)
     for l, lp in enumerate(params["layers"]):
         mixer, mlp = layer_kinds(cfg, l)
-        if mixer != "attn":
-            raise _ssm_missing()
-        out, _ = attention_decode(lp["mixer"], cfg.attn_config(),
-                                  _norm(cfg, lp["norm1"], h),
-                                  _layer_cache(caches, cfg, l), pos)
+        hn = _norm(cfg, lp["norm1"], h)
+        view = _layer_cache(caches, cfg, l)
+        if mixer == "attn":
+            out, _ = attention_decode(lp["mixer"], cfg.attn_config(), hn,
+                                      view, pos)
+        else:
+            out, nc = ssm_decode(lp["mixer"], cfg.ssm_config(), hn, view)
+            view.conv_state.copy_(nc.conv_state)
+            view.ssm_state.copy_(nc.ssm_state)
         h, _ = _mlp_block(cfg, lp, mlp, h + out)
     h = _norm(cfg, params["final_norm"], h)
     return logits_from_hidden(params, cfg, h)[:, 0], caches
@@ -345,22 +447,49 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, S_max: int,
             cache_dtype=torch.bfloat16,
             vision_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, List[KVCache]]:
+            ) -> Tuple[torch.Tensor, List[Cache]]:
     """Run the prompt, returning (last-token logits f32 [B, vocab], primed
-    caches)."""
+    caches). The KV caches are in ``cache_dtype``; an SSM slot's caches are
+    what ``_ssm_prefill_state`` gives, as in the reference: the conv state
+    in the compute dtype, the SSM state in float32."""
     h = embed_inputs(cfg, params, tokens, vision_embeds)
-    caches = init_cache(cfg, h.shape[0], S_max, cache_dtype, h.device)
+    B = h.shape[0]
+    slots = cfg.group_slots()
+    kv = {i: KVCache(*(torch.zeros((cfg.n_groups, B, S_max, cfg.kv_heads,
+                                    cfg.hd), dtype=cache_dtype,
+                                   device=h.device) for _ in range(2)))
+          for i, (mixer, _) in enumerate(slots) if mixer == "attn"}
+    ssm_states: Dict[int, List[SSMCache]] = {
+        i: [] for i, (mixer, _) in enumerate(slots) if mixer != "attn"}
     for l, lp in enumerate(params["layers"]):
         mixer, mlp = layer_kinds(cfg, l)
-        if mixer != "attn":
-            raise _ssm_missing()
-        out, nc = prefill_cache(lp["mixer"], cfg.attn_config(),
-                                _norm(cfg, lp["norm1"], h), S_max,
-                                cache_dtype)
-        view = _layer_cache(caches, cfg, l)
-        view.k.copy_(nc.k)
-        view.v.copy_(nc.v)
+        g, slot = divmod(l, cfg.group_size)
+        hn = _norm(cfg, lp["norm1"], h)
+        if mixer == "attn":
+            out, nc = prefill_cache(lp["mixer"], cfg.attn_config(), hn,
+                                    S_max, cache_dtype)
+            kv[slot].k[g].copy_(nc.k)
+            kv[slot].v[g].copy_(nc.v)
+        else:
+            scfg = cfg.ssm_config()
+            out = ssm_forward(lp["mixer"], scfg, hn)
+            ssm_states[slot].append(_ssm_prefill_state(lp["mixer"], scfg,
+                                                       hn))
         h, _ = _mlp_block(cfg, lp, mlp, h + out)
     h = _norm(cfg, params["final_norm"], h)
     logits = logits_from_hidden(params, cfg, h[:, -1:])[:, 0]
+    caches = [kv[i] if i in kv else
+              SSMCache(*(torch.stack(t) for t in zip(*ssm_states[i])))
+              for i in range(len(slots))]
     return logits, caches
+
+
+def _ssm_prefill_state(p, scfg: SSMConfig, u: torch.Tensor) -> SSMCache:
+    """Final (conv_state, ssm_state) after consuming u (prefill): the
+    chunk-free form of the state the chunked scan carries."""
+    _, x, Bm, _, dtv, conv_state = _conv_act(p, scfg, u)
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    cs = torch.cumsum(dtv * A[None, None], dim=1)
+    tail = torch.exp(cs[:, -1:] - cs) * dtv
+    state = torch.einsum("bjh,bjhp,bjn->bhpn", tail, x, Bm)
+    return SSMCache(conv_state, state)

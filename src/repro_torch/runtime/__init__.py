@@ -1,7 +1,8 @@
-"""repro_torch.runtime — straggler monitoring and the elastic shrink
-policy behind the fleet's device-loss re-deal (``repro_torch.spmm.fleet``).
+"""repro_torch.runtime — the train loop's supervisor (checkpointed crash
+recovery), straggler monitoring, and the elastic shrink policy behind the
+fleet's device-loss re-deal (``repro_torch.spmm.fleet``).
 """
 from .elastic import largest_feasible_mesh
-from .fault_tolerance import StragglerMonitor
+from .fault_tolerance import StragglerMonitor, Supervisor
 
-__all__ = ["StragglerMonitor", "largest_feasible_mesh"]
+__all__ = ["Supervisor", "StragglerMonitor", "largest_feasible_mesh"]

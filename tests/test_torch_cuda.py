@@ -1255,3 +1255,52 @@ def test_autotune_candidates_on_the_card(cuda, k):
             _close(spmv(mat, X[:, 0]), want[:, 0])
         else:
             _close(spmm(mat, X), want)
+
+
+def test_ssm_forward_matches_naive_on_the_card(cuda):
+    """The chunked Mamba-2 scan on the card (float32, 3 chunks of 64, the
+    last one ragged) against its step-by-step recurrence and against the
+    same forward on the CPU."""
+    from repro_torch.models import ssm as TS
+    cfg = TS.SSMConfig(d_model=256, d_state=64, headdim=64, chunk=64)
+    params = TS.ssm_init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    u = torch.randn((2, 150, 256), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    with torch.no_grad():
+        got = TS.ssm_forward(params, cfg, u)
+        _close(got, TS.ssm_forward_naive(params, cfg, u))
+        cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.cpu())
+               for k, v in params.items()}
+        _close(got.cpu(), TS.ssm_forward(cpu, cfg, u.cpu()))
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One AdamW step of jamba reduced (SSM, attention, MoE through the
+    per-expert route) on the card and on the CPU from the same parameters
+    and tokens: the loss, every gradient leaf and the step's metrics
+    agree; float32 sums in another order."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim import constant_lr, make_optimizer
+    from repro_torch.optim.adamw import leaves
+    cfg = get_config("jamba-1.5-large-398b", reduced=True)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        params = params.to(dev)
+        loss, _ = loss_fn(params, cfg, tokens.to(dev))
+        grads = torch.autograd.grad(loss, leaves(params))
+        opt = make_optimizer("adamw", constant_lr(1e-3))
+        _, m = make_train_step(cfg, opt)(
+            TrainState(params, opt.init(params)), {"tokens": tokens.to(dev)})
+        out[str(dev)] = (loss.detach(), grads, m)
+    (l0, g0, m0), (l1, g1, m1) = out["cpu"], out[str(cuda)]
+    _close(l1.cpu(), l0)
+    for a, b in zip(g1, g0):
+        _close(a.cpu(), b)
+    for k in ("loss", "ce", "aux", "grad_norm"):
+        _close(m1[k].cpu(), m0[k])
