@@ -21,7 +21,9 @@ runs the autotuner and PageRank, serves mamba2-1.3b at full width (the
 Mamba-2 SSM mixer, checked against its naive recurrence) and the jamba
 hybrid through K9, trains mamba2-1.3b at full width with checkpoints and
 a resume, runs the ``train_lm`` example's sparse-mixer phase (K1 forward,
-K3 backward), shows through the wrappers' launch counters that
+K3 backward), runs the LM mesh on four positions of cuda:0 (the
+expert-parallel MoE dispatch through K9, ``train --mesh 2x2``), shows
+through the wrappers' launch counters that
 each path went through its kernels, and prints one JSON line per kernel
 table and a final status line:
 
@@ -192,23 +194,45 @@ Phases:
      rounded to bf16 reported beside it), and the served run itself
      (bf16 compute, its prefill and decode logits) against the naive
      recurrence in bf16 (``1e-1 * max(1, max|naive|)``: bf16 paths drift
-     apart with depth); ``torch.profiler`` over one prefill and one
+     apart with depth) — the whole-stack naive recurrence is
+     ``scan_recurrence``: ``ssm_decode``'s state update one token at a
+     time, its position-wise parts computed for all tokens at once; ``torch.profiler`` over one prefill and one
      decode step; ``serve --mode lm --arch jamba-1.5-large-398b
      --reduced`` with ``--impl kernel`` against ``--impl plain`` (the
      prefill's and each decode step's logits within ``1e-2 * max(1,
      max|plain|)`` while the tokens fed agree, K9's tiled and decode
      kernels launched, none by the plain run); ``launch.train`` on
-     mamba2-1.3b at full width, 4 AdamW steps at batch 4, seq 512 with
+     mamba2-1.3b at full width, 3 AdamW steps at batch 4, seq 512 with
      ``--save-every 2`` (losses, ms a step, tokens/s, peak memory), then
-     step 4's commit is taken back, a fresh ``Supervisor`` restores step
-     2 into newly drawn parameters and steps 2-3 run again (the first
-     profiled): their losses within 1e-3 relative of the first run's;
+     step 3's commit is taken back, a fresh ``Supervisor`` restores step
+     2 into newly drawn parameters and step 2 runs again (profiled): its
+     loss within 1e-3 relative of the first run's;
      the ``train_lm`` example's sparse-mixer phase on the card
      (``sparse_matmul`` through the operator's installed plan: the launch
      counters that moved), its plan's forward and transpose multiply
      against their plain versions at its width (k = 16), and each of its
      60 losses against the same phase through the plain versions
-     (``1e-4 * max(1, loss0)``).
+     (``1e-4 * max(1, loss0)``);
+ 14. the LM mesh on four positions of cuda:0: (a) one granite-moe-1b-
+     a400m MoE layer at the served prefill shapes (32 x 128 bf16 tokens,
+     random weights from seed 0) through ``moe_apply_ep`` on a (1, 4)
+     mesh, the experts split four ways, local products through K9's
+     tensor-core kernel: without drops (capacity factor 4) against the
+     baseline ``moe_apply``, at the default 1.3 against the same dispatch
+     through K9's plain version (its dropped slots printed), and
+     ``moe_apply_ep_tp`` (d_ff 512 -> 128 a position) against the
+     baseline, each within ``1e-2 * max(1, max|other|)``, their 36 K9
+     launches counted around the three dispatches, each timed beside the
+     baseline; (b) ``launch.train --arch granite-moe-1b-a400m --mesh 2x2
+     --mesh-devices cuda:0,cuda:0,cuda:0,cuda:0`` against ``--mesh
+     1x1``: 3 AdamW steps at full width and depth, batch 4 x seq 512
+     (cut from train_4k's 256 x 4,096), no checkpoint, losses within
+     1e-3 relative (bf16 compute); ms a step, tokens/s, the peak memory
+     beside its reckoning (f32 parameters placed once, AdamW's moments,
+     a gathered copy and its gradients per data block) and one more
+     step's device events (``torch.profiler``) for both, at ``--lr
+     1e-4`` (``MESH_TRAIN_LR``); the phase's seconds. A mesh of
+     positions of one card measures dispatch and memory, not links.
 
 Bound: ``bound_ms`` is the larger of the bytes the SpMM function needs
 (CSR values and columns per nonzero, one row offset per row, X read once,
@@ -254,10 +278,12 @@ ends with a ``rows``
 JSON line (every kernel, matrix and k; both serve runs' headline, flush
 latency, batcher phases and conversion times; the symmetric, GMRES and
 autograd phases; the mesh phase; the LM phase; the fleet and autotune
-phases; the SSM and training phase), the card line, the
+phases; the SSM and training phase; the LM mesh phase), the card line, the
 ``kernels`` JSON
 line and the status
-line. K3's ``launches`` there is the sum over the GMRES and autograd
+line. K9w's ``launches`` there is the sum of phase 10's served run and
+phase 14's three EP dispatches, each counted from zero. K3's
+``launches`` there is the sum over the GMRES and autograd
 phases, each counted from zero; K5's, K6's and K7's are the sums over
 phase 8's multiplies through the entry points (``core.spmv``,
 ``spmm``, ``kernels.ops.bsr_spmm``, the quickstart), each window counted
@@ -2431,37 +2457,58 @@ def moe_layer_check(res) -> dict:
     return worst
 
 
-def profile_device(fn):
-    """(profile, fn()) for one call under ``torch.profiler`` with device
-    activity only: the device kernels' busy ms, their launches, K9's ms
-    and the top 8 kernels; "not measured" if the trace has no device
-    times. A training step's ~5 x 10^4 launches with their CPU op events
-    take ~40 s to aggregate, its kernels alone a few seconds; one decode
-    step counts the same launches either way."""
+class TraceError(Exception):
+    """The profiler failed (not the call it traced)."""
+
+
+def device_trace(fn):
+    """(``[(kernel name, device us)]``, fn()) of one call under
+    ``torch.profiler`` with device activity only, read from the trace's
+    raw events: at ~10^5 events a training step's ``key_averages()``
+    takes ~30 s, the raw events ~1.5 s. The events are kernels, copies
+    and memsets. An error of ``fn`` propagates as it is; one of the
+    profiler is raised as ``TraceError``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    def kernel_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        result = fn()
-        torch.cuda.synchronize()
-    ka = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel_us(e) > 0]
-    busy = sum(kernel_us(e) for e in ka) / 1e3
-    if busy <= 0:
+    in_fn = False
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            in_fn = True
+            result = fn()
+            torch.cuda.synchronize()
+            in_fn = False
+        evs = [(e.name(), e.duration_ns() / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and e.duration_ns() > 0]
+    except Exception as exc:
+        if in_fn:
+            raise
+        raise TraceError(f"{type(exc).__name__}: {exc}") from exc
+    return evs, result
+
+
+def profile_device(fn):
+    """(profile, fn()) for one call (``device_trace``): the device
+    kernels' busy ms, their launches, K9's ms and the top 8 kernels;
+    "not measured" if the trace has no device times."""
+    evs, result = device_trace(fn)
+    if not evs:
         return {"not_measured": "no device times in the trace"}, result
-    k9 = sum(kernel_us(e) for e in ka if "moe_group_matmul" in e.key) / 1e3
-    top = sorted(ka, key=kernel_us, reverse=True)[:8]
+    by_name: dict = {}
+    for name, us in evs:
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += us
+        acc[1] += 1
+    busy = sum(us for _, us in evs) / 1e3
+    k9 = sum(v[0] for n, v in by_name.items()
+             if "moe_group_matmul" in n) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     return {"device_busy_ms": busy, "k9_ms": k9,
-            "k9_share_of_busy": k9 / busy,
-            "kernel_launches": int(sum(e.count for e in ka)),
-            "top": [{"kernel": e.key[:80], "ms": kernel_us(e) / 1e3,
-                     "count": int(e.count)} for e in top]}, result
+            "k9_share_of_busy": k9 / busy, "kernel_launches": len(evs),
+            "top": [{"kernel": n[:80], "ms": v[0] / 1e3, "count": v[1]}
+                    for n, v in top]}, result
 
 
 def print_profile(label: str, o: dict, wall_ms: float) -> dict:
@@ -2519,8 +2566,8 @@ def profile_lm(res, steps: int = 3) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
         try:
             o, _ = profile_device(fn)
-        except Exception as exc:   # instrumentation only: report, go on
-            o = {"not_measured": f"{type(exc).__name__}: {exc}"}
+        except TraceError as exc:   # instrumentation only: report, go on
+            o = {"not_measured": str(exc)}
         o["steps"] = 1 if name == "prefill" else steps
         out[name] = print_profile(f"{name} x{o['steps']}", o, wall_ms)
     return out
@@ -2725,19 +2772,47 @@ SSM_TOL_REL = 1e-4
 # the served bf16 run vs the naive recurrence in bf16: 0.195 and 0.212 in
 # two H100 runs, max|logit| 4.74
 SSM_BF16_TOL_REL = 1e-1
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE = 4, 512, 4, 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE = 4, 512, 3, 2
 TRAIN_LR = 1e-3          # train.py's default --lr
 TRAIN_REL = 1e-3         # resumed losses vs the uninterrupted run
+# the replayed steps' parameters vs the uninterrupted run's last ones,
+# relative to the norm of the update the replay makes: a lost or mangled
+# optimizer state (moments, step count) moves it by O(1)
+TRAIN_UPDATE_REL = 1e-2
 MIXER_K = 16             # the sparse-mixer phase's width (its d_out)
+
+
+def scan_recurrence(p, scfg, u):
+    """``ssm_forward_naive``'s function (``ssm_decode``'s recurrence, one
+    token at a time from a zero state) with the position-wise parts (the
+    projections, the causal conv over the whole sequence, the activations,
+    the gated norm and the output projection) computed for all positions
+    at once: ~6 launches a token in place of one ``ssm_decode``'s ~35."""
+    import torch
+    from repro_torch.models.layers import dense
+    from repro_torch.models.ssm import _conv_act, _gated_norm
+    B, S, _ = u.shape
+    z, x, Bm, Cm, dt, _ = _conv_act(p, scfg, u)
+    a = torch.exp(dt * -torch.exp(p["A_log"].to(torch.float32)))  # [B,S,H]
+    dx = dt[..., None] * x                                      # [B,S,H,P]
+    state = torch.zeros(x.shape[:1] + x.shape[2:] + (scfg.d_state,),
+                        dtype=torch.float32, device=u.device)
+    ys = torch.empty_like(x)
+    for t in range(S):
+        state = state * a[:, t, :, None, None] \
+            + dx[:, t, :, :, None] * Bm[:, t, None, None, :]
+        ys[:, t] = torch.einsum("bn,bhpn->bhp", Cm[:, t], state)
+    y = ys + x * p["D"].to(torch.float32)[None, None, :, None]
+    y = _gated_norm(p, y.reshape(B, S, scfg.d_inner), z)
+    return dense(p["out_proj"], y.to(u.dtype))
 
 
 def naive_lm_logits(params, cfg, tokens):
     """The SSM stack's logits at every position of ``tokens`` with every
-    mixer run as ``ssm_forward_naive`` (one ``ssm_decode`` a token from a
-    zero cache), in the config's compute dtype."""
+    mixer run as the step-by-step recurrence (``scan_recurrence``), in
+    the config's compute dtype."""
     import torch
     from repro_torch.models import model as M
-    from repro_torch.models.ssm import ssm_forward_naive
     with torch.no_grad():
         h = M.embed_inputs(cfg, params, tokens)
         for l, lp in enumerate(params["layers"]):
@@ -2745,7 +2820,7 @@ def naive_lm_logits(params, cfg, tokens):
             if mixer != "ssm":
                 raise ValueError("the naive check runs SSM stacks only")
             hn = M._norm(cfg, lp["norm1"], h)
-            h = h + ssm_forward_naive(lp["mixer"], cfg.ssm_config(), hn)
+            h = h + scan_recurrence(lp["mixer"], cfg.ssm_config(), hn)
             h, _ = M._mlp_block(cfg, lp, mlp, h)
         h = M._norm(cfg, params["final_norm"], h)
         return M.logits_from_hidden(params, cfg, h)
@@ -2884,8 +2959,9 @@ def run_ssm_train(quick: bool) -> dict:
     naive recurrence, serve jamba reduced through K9 and its plain
     version, train mamba2-1.3b at full width with checkpoints and resume
     from the first in a fresh ``Supervisor`` (the steps after it re-run
-    with the same step function, the first of them profiled), and run the
-    ``train_lm`` example's sparse-mixer phase."""
+    with the same step function, the first of them profiled, and the
+    parameters after them held against the first run's last), and run
+    the ``train_lm`` example's sparse-mixer phase."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import TokenPipeline
@@ -2894,6 +2970,7 @@ def run_ssm_train(quick: bool) -> dict:
     from repro_torch.launch.steps import TrainState, make_train_step
     from repro_torch.models.model import init_params
     from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.optim.adamw import leaves
     from repro_torch.runtime import Supervisor
 
     t_phase = time.perf_counter()
@@ -3010,6 +3087,7 @@ def run_ssm_train(quick: bool) -> dict:
         tcfg = r1["cfg"]
         losses1, step_s = r1["losses"], r1["step_s"]
         n_params = tcfg.param_count(r1["state"].params)
+        final = leaves(r1["state"].params)   # after the last update
         del r1
         torch.cuda.empty_cache()
         mark("trained")
@@ -3027,6 +3105,10 @@ def run_ssm_train(quick: bool) -> dict:
         state, start = Supervisor(ck).restore(state)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
+        # the replay's update, as the first run made it
+        with torch.no_grad():
+            upd_sq = sum((f - t).double().square().sum()
+                         for f, t in zip(final, leaves(state.params)))
         mark("restored")
     pipe = TokenPipeline(vocab=tcfg.vocab, batch=tb, seq=ts, seed=0)
     step_fn = make_train_step(tcfg, opt)
@@ -3042,7 +3124,13 @@ def run_ssm_train(quick: bool) -> dict:
             state, m = step_fn(state, batch)
         losses2.append(float(m["loss"]))
         replay_s.append(time.perf_counter() - t0)
-    del state
+    # the loss of the last replayed step is read before its update: the
+    # parameters after it hold the restored moments and step count too
+    with torch.no_grad():
+        err_sq = sum((t - f).double().square().sum()
+                     for t, f in zip(leaves(state.params), final))
+    update_rel = float((err_sq / upd_sq).sqrt())
+    del state, final
     torch.cuda.empty_cache()
     mark("replayed")
     rel = [abs(a - b) / max(abs(b), 1e-30)
@@ -3053,6 +3141,7 @@ def run_ssm_train(quick: bool) -> dict:
         "arch": tcfg.name, "layers": tcfg.n_layers, "n_params": n_params,
         "batch": tb, "seq": ts, "losses": losses1,
         "resumed_losses": losses2, "resume_rel_err": rel,
+        "resume_update_rel_err": update_rel,
         "step_ms": [s * 1e3 for s in step_s],
         "tok_per_s": tokens / (sum(steady) / len(steady)),
         "peak_gib": peak, "run_s": train_s, "restore_s": restore_s,
@@ -3065,12 +3154,18 @@ def run_ssm_train(quick: bool) -> dict:
           f"{peak:.2f} GiB; run {train_s:.1f} s with 2 checkpoints; "
           f"restore {restore_s:.1f} s; resumed from step {start}: "
           f"{[round(x, 5) for x in losses2]}, rel err "
-          f"{[f'{x:.2g}' for x in rel]}", flush=True)
-    # the idle share against the next (unprofiled) step's wall time
-    print_profile(f"train step {start}", profile, replay_s[-1] * 1e3)
+          f"{[f'{x:.2g}' for x in rel]}; parameters after the replay vs "
+          f"the first run's, relative to the update: {update_rel:.3g} (tol "
+          f"{TRAIN_UPDATE_REL})", flush=True)
+    # the idle share against the same step's unprofiled wall time in the
+    # first run
+    print_profile(f"train step {start}", profile, step_s[start] * 1e3)
     if start != TRAIN_SAVE or len(losses2) != TRAIN_STEPS - TRAIN_SAVE or not all(
             np.isfinite(losses1)) or max(rel) > TRAIN_REL:
         raise AssertionError(f"resumed losses {losses2} vs {losses1}")
+    if not update_rel <= TRAIN_UPDATE_REL:
+        raise AssertionError(f"the replayed update is {update_rel:.3g} off "
+                             f"the first run's (tol {TRAIN_UPDATE_REL})")
 
     # 13.4 the train_lm example's sparse-mixer phase, then its kernels
     # against their plain versions at its shapes (these launches are not
@@ -3123,6 +3218,205 @@ def run_ssm_train(quick: bool) -> dict:
 
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[chip_smoke] ssm/train phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# phase 14: the LM mesh on four positions of cuda:0
+EP_MESH = (1, 4)          # (data, model): the experts split four ways
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 4, 512, 3
+MESH_TRAIN_REL = 1e-3     # mesh losses vs one device's (bf16 compute)
+# at train.py's default --lr 1e-3 (one warm-up step) granite diverges from
+# random init (11.74 -> 9.63 -> 11.27) and two 1x1 runs on an H100 differ
+# by up to 3.4e-3 at the third step (atomic adds in the backward pass,
+# amplified); at 1e-4 the loss descends (-> 9.82 -> 9.06) and 1x1 repeats
+# itself to the bit, so the mesh is held against it there
+MESH_TRAIN_LR = 1e-4
+
+
+def run_lm_mesh(quick: bool, reps: int) -> dict:
+    """Phase 14: (a) one granite-moe-1b-a400m MoE layer at the served
+    prefill shapes (batch 32 x 128 tokens, bf16 rows, random weights from
+    seed 0) through ``moe_apply_ep`` on a (1, 4) mesh of four positions of
+    cuda:0 (local products through K9's tensor-core kernel): without
+    drops (capacity factor 4) against the baseline ``moe_apply`` (K9), at
+    the default 1.3 against the same dispatch through K9's plain version
+    (with its dropped slots), and ``moe_apply_ep_tp`` (d_ff 512 -> 128 a
+    position) against the baseline, each within ``LAYER_TOL_REL * max(1,
+    max|other|)``; their K9 launches are counted around the three
+    dispatches, and each is timed beside the baseline. (b) ``train
+    --mesh 2x2`` on four positions of cuda:0 against ``--mesh 1x1``: 3
+    AdamW steps of granite-moe-1b-a400m at full width and depth (batch 4
+    x seq 512, cut from train_4k's 4,096), losses within
+    ``MESH_TRAIN_REL`` at ``MESH_TRAIN_LR``; ms a step, tokens/s, the
+    peak memory beside its reckoning and one more step's device events
+    (``device_trace``) for both. No checkpoint is written."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import moe as M
+    from repro_torch.optim import make_optimizer, warmup_cosine
+
+    t_phase = time.perf_counter()
+    out = {}
+    d, f, E, top = (GRANITE[k] for k in ("d", "f", "E", "top"))
+    B, S = (4, 128) if quick else (LM_BATCH, LM_PROMPT)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = M.MoEConfig(d, f, E, top, use_kernel=True)
+    p = M.moe_init(gen, cfg, torch.float32)
+    x = torch.randn((B, S, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    mesh = make_mesh(EP_MESH, ("data", "model"), devices=["cuda:0"] * 4)
+    n_ep = EP_MESH[1]
+
+    def ep(cf, c=cfg):
+        with set_mesh(mesh):
+            return M.moe_apply_ep(p, c, x, capacity_factor=cf)
+
+    def dropped_at(cf):
+        with set_mesh(mesh):
+            return M.ep_dropped_slots(p, cfg, x, capacity_factor=cf)
+
+    def ep_tp():
+        with set_mesh(mesh):
+            return M.moe_apply_ep_tp(p, cfg, x)
+
+    # (a) the three dispatches, counted
+    torch.cuda.synchronize()
+    reset_counts()
+    y_full, aux_full = ep(float(n_ep))
+    y_ep, aux_ep = ep(1.3)
+    y_tp, aux_tp = ep_tp()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want_k9w = 3 * 3 * n_ep          # 3 dispatches x 4 positions x 3
+    if counts["K9w"] != want_k9w or counts["K9"] or counts["K9d"]:
+        raise AssertionError(f"the EP dispatches launched {counts}, not "
+                             f"{want_k9w} tensor-core K9 launches")
+    # the comparisons, uncounted
+    base, aux_base = M.moe_apply(p, cfg, x)
+    y_plain, aux_plain = ep(1.3, cfg._replace(plain=True))
+    drop_full, dropped = dropped_at(float(n_ep)), dropped_at(1.3)
+    checks = {}
+    for label, got, other in (("ep_nodrop_vs_baseline", y_full, base),
+                              ("ep_1.3_vs_plain", y_ep, y_plain),
+                              ("ep_tp_vs_baseline", y_tp, base)):
+        err = max_err(got, other)
+        tol = LAYER_TOL_REL * max(1.0, float(other.float().abs().max()))
+        checks[label] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"phase 14 {label}: {err:.3g} > {tol:.3g}")
+    if drop_full != 0:
+        raise AssertionError(f"{drop_full} slots dropped at capacity "
+                             f"{n_ep}")
+    ms = {"baseline": cuda_ms(lambda: M.moe_apply(p, cfg, x), reps),
+          "ep_nodrop": cuda_ms(lambda: ep(float(n_ep)), reps),
+          "ep_1.3": cuda_ms(lambda: ep(1.3), reps),
+          "ep_tp": cuda_ms(ep_tp, reps)}
+    out["ep"] = {"tokens": B * S, "slots": B * S * top, "mesh": EP_MESH,
+                 "dropped_slots_at_1.3": dropped, "checks": checks,
+                 "aux": {"baseline": float(aux_base), "ep_nodrop":
+                         float(aux_full), "ep_1.3": float(aux_ep),
+                         "ep_tp": float(aux_tp)},
+                 "ms": ms, "launches": {k: v for k, v in counts.items()
+                                        if v}}
+    print(f"[chip_smoke] phase 14 (a) granite MoE layer, {B} x {S} bf16 "
+          f"tokens on a {EP_MESH} mesh of cuda:0: EP without drops vs "
+          f"moe_apply {checks['ep_nodrop_vs_baseline']['max_abs_err']:.3g},"
+          f" EP at 1.3 ({dropped} of {B * S * top} slots dropped) vs its "
+          f"plain version {checks['ep_1.3_vs_plain']['max_abs_err']:.3g}, "
+          f"EP-TP vs moe_apply "
+          f"{checks['ep_tp_vs_baseline']['max_abs_err']:.3g} (tol "
+          f"{checks['ep_tp_vs_baseline']['tol']:.3g}); ms: "
+          f"{ {k: round(v, 3) for k, v in ms.items()} }; K9 launches "
+          f"{out['ep']['launches']}", flush=True)
+    del p, x, base, y_full, y_ep, y_tp, y_plain
+    torch.cuda.empty_cache()
+
+    # (b) train --mesh 2x2 against --mesh 1x1
+    argv = ["--arch", "granite-moe-1b-a400m", "--steps",
+            str(MESH_TRAIN_STEPS), "--batch", str(MESH_TRAIN_BATCH),
+            "--seq", str(MESH_TRAIN_SEQ), "--optimizer", "adamw",
+            "--lr", str(MESH_TRAIN_LR), "--save-every", "0", "--seed",
+            "0"] + (
+                ["--reduced"] if quick else [])
+    runs = {}
+    for label, extra in (("1x1", []),
+                         ("2x2", ["--mesh", "2x2", "--mesh-devices",
+                                  ",".join(["cuda:0"] * 4)])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = train.main(argv + extra)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tcfg = r["cfg"]
+        params = r["state"].params
+        n_params = sum(t.numel() for t in params.parameters()) \
+            if label == "1x1" else sum(
+                int(np.prod(st.shape)) for st in params.parameters())
+        # the reckoning: f32 parameters placed once, AdamW's two moments,
+        # and a gathered copy with its gradients per data block (one
+        # device: the gradients alone)
+        copies = 3 + (4 if label == "2x2" else 1)
+        reckoned = n_params * 4 * copies / 2 ** 30
+        # one more step, profiled: its kernel launches
+        opt = make_optimizer("adamw", warmup_cosine(
+            MESH_TRAIN_LR, max(MESH_TRAIN_STEPS // 10, 1),
+            MESH_TRAIN_STEPS))
+        step_fn = make_train_step(
+            tcfg, opt, mesh=None if label == "1x1" else make_mesh(
+                (2, 2), ("data", "model"), devices=["cuda:0"] * 4))
+        pipe = TokenPipeline(vocab=tcfg.vocab, batch=MESH_TRAIN_BATCH,
+                             seq=MESH_TRAIN_SEQ, seed=0)
+        batch = {"tokens": torch.from_numpy(pipe.batch_at(
+            MESH_TRAIN_STEPS)["tokens"]).cuda()}
+        try:
+            evs, _ = device_trace(lambda: step_fn(r["state"], batch))
+            prof = {"device_events": len(evs),
+                    "device_busy_ms": sum(us for _, us in evs) / 1e3}
+        except TraceError as exc:   # instrumentation only: report, go on
+            prof = {"not_measured": str(exc)}
+        steady = r["step_s"][1:] or r["step_s"]
+        runs[label] = {
+            "losses": r["losses"], "step_ms": [t * 1e3 for t in r["step_s"]],
+            "tok_per_s": MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
+            / (sum(steady) / len(steady)),
+            "peak_gib": peak, "reckoned_gib": reckoned, "run_s": run_s,
+            "n_params": n_params,
+            "launches_per_step": prof.get("device_events"),
+            "device_busy_ms": prof.get("device_busy_ms"),
+            "profile": prof.get("not_measured", "ok")}
+        del r, params, step_fn
+        torch.cuda.empty_cache()
+        o = runs[label]
+        print(f"[chip_smoke] phase 14 (b) train --mesh {label} "
+              f"({tcfg.n_layers} layers, {n_params} params, batch "
+              f"{MESH_TRAIN_BATCH} x seq {MESH_TRAIN_SEQ}, AdamW): losses "
+              f"{[round(v, 5) for v in o['losses']]}; step ms "
+              f"{[round(v, 1) for v in o['step_ms']]} ({o['tok_per_s']:.0f} "
+              f"tok/s after the first); peak {peak:.2f} GiB (reckoned "
+              f"{reckoned:.2f} GiB before activations); one more step: "
+              f"{o['launches_per_step']} device events (kernels, copies, "
+              f"memsets), device busy {o['device_busy_ms']} ms; run "
+              f"{run_s:.1f} s", flush=True)
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(runs["2x2"]["losses"], runs["1x1"]["losses"])]
+    out["train"] = {**runs, "rel_err": rel,
+                    "cut": f"seq {MESH_TRAIN_SEQ} of train_4k's 4096, "
+                           f"batch {MESH_TRAIN_BATCH} of 256, "
+                           f"{MESH_TRAIN_STEPS} steps"}
+    print(f"[chip_smoke] phase 14 (b) mesh 2x2 vs 1x1 losses rel err "
+          f"{[f'{v:.2g}' for v in rel]} (tol {MESH_TRAIN_REL})", flush=True)
+    if len(rel) != MESH_TRAIN_STEPS or not all(
+            np.isfinite(runs["2x2"]["losses"])) or max(rel) > MESH_TRAIN_REL:
+        raise AssertionError(f"train --mesh 2x2 losses "
+                             f"{runs['2x2']['losses']} vs 1x1 "
+                             f"{runs['1x1']['losses']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke] lm mesh phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -3266,6 +3560,10 @@ def main(argv=None) -> int:
     # phase 13: the SSM mixer served and trained (mamba2-1.3b), the jamba
     # hybrid through K9, the train_lm example's sparse-mixer phase
     ssm_row = run_ssm_train(args.quick)
+    torch.cuda.empty_cache()
+
+    # phase 14: the LM mesh (EP dispatch through K9, train --mesh 2x2)
+    mesh_lm_row = run_lm_mesh(args.quick, reps)
 
     launches = {"K1": counts_a["K1"], "K2": counts_b["K2"],
                 "K3": gmres_row["launches"]["K3"]
@@ -3275,7 +3573,8 @@ def main(argv=None) -> int:
                 "K8": mesh_row["launches"]["K8"],
                 "K9": lm_row["reduced_f32"]["launches"]["K9"]
                 + lm_row["reduced_f32"]["launches"]["K9d"],
-                "K9w": lm_row["launches"]["K9w"]}
+                "K9w": lm_row["launches"]["K9w"]
+                + mesh_lm_row["ep"]["launches"]["K9w"]}
     table["K9"]["decode_launches"] = lm_row["reduced_f32"]["launches"]["K9d"]
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "carry", "K5", "K6", "K7", "K8",
@@ -3303,7 +3602,8 @@ def main(argv=None) -> int:
                       "symmetric": sym_row, "gmres": gmres_row,
                       "autograd": grad_row, "blocked": blocked_row,
                       "mesh": mesh_row, "lm": lm_row, "fleet": fleet_rows,
-                      "autotune": tune_row, "ssm": ssm_row}))
+                      "autotune": tune_row, "ssm": ssm_row,
+                      "lm_mesh": mesh_lm_row}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,18 @@ on that device at shard shapes. This is the port's counterpart of the
 reference's ``XLA_FLAGS=--xla_force_host_platform_device_count`` and the
 only way to build a mesh larger than the number of cards. ``devices=None``
 takes the first cards of the machine and raises when there are too few.
+
+The LM mesh uses the reference's production meshes
+(:func:`make_production_mesh`): the dry run lays them over ``meta``
+positions (``devices=["meta"] * 256``), which hold shapes and no data.
+:func:`set_mesh` makes a mesh ambient (the port's ``repro.compat.set_mesh``):
+the expert-parallel MoE dispatch and the model's batch constraint read it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+import contextlib
+import contextvars
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,6 +82,58 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     for i, d in enumerate(_devices(need, devices)):
         grid[i] = d
     return Mesh(grid.reshape(shape), tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence[DeviceLike]] = None
+                         ) -> Mesh:
+    """The reference's production mesh: ``(data=16, model=16)``, or
+    ``(pod=2, data=16, model=16)`` with ``multi_pod``, over ``devices``
+    (default: the machine's cards; raises when there are too few)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=devices)
+
+
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Mesh) -> Iterator[Mesh]:
+    """Make ``mesh`` the ambient mesh inside the ``with`` block."""
+    token = _AMBIENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost :func:`set_mesh`, or None."""
+    return _AMBIENT.get()
+
+
+_LOCAL: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_mesh_local", default=None)
+
+
+@contextlib.contextmanager
+def at_coords(coords: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Inside the block, the program runs at these coordinates of some
+    mesh axes: the batch it sees is already that block of the global
+    batch (the mesh train step runs one forward per data position)."""
+    token = _LOCAL.set(dict(coords))
+    try:
+        yield coords
+    finally:
+        _LOCAL.reset(token)
+
+
+def local_coords() -> Dict[str, int]:
+    """The coordinates of the innermost :func:`at_coords` (empty outside
+    one: the program sees the whole batch)."""
+    return _LOCAL.get() or {}
 
 
 def make_spmm_mesh(mesh_shape: Tuple[int, int],

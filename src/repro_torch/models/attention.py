@@ -161,8 +161,12 @@ def _full_sdpa(q, k, v, cfg: AttnConfig) -> torch.Tensor:
 
 
 def attention(p, cfg: AttnConfig, x: torch.Tensor,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence causal attention (train / prefill)."""
+              positions: Optional[torch.Tensor] = None,
+              vmap_q: bool = False) -> torch.Tensor:
+    """Full-sequence causal attention (train / prefill). ``vmap_q`` is the
+    reference's switch of its query-chunk loop from scan to vmap under
+    sequence parallelism: it changes no value, and the port's loop is
+    the same either way."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -209,8 +213,10 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache: KVCache,
 
 
 def prefill_cache(p, cfg: AttnConfig, x: torch.Tensor, S_max: int,
-                  dtype=torch.bfloat16) -> Tuple[torch.Tensor, KVCache]:
-    """Run full attention over the prompt and return output + primed cache."""
+                  dtype=torch.bfloat16, vmap_q: bool = False
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """Run full attention over the prompt and return output + primed
+    cache (``vmap_q`` as in :func:`attention`)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)

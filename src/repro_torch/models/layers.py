@@ -4,19 +4,30 @@ over parameter trees, indexed by name as in the reference (``p["w"]``).
 Initialisers draw from an explicit ``torch.Generator`` on the device where
 the tensors live; they give other numbers than the reference's
 ``jax.random`` keys, so tests carry the reference's parameters across
-(``repro_torch.interop.lm_params_from_arrays``).
+(``repro_torch.interop.lm_params_from_arrays``). :data:`META_INIT` in
+place of a generator makes the same tree of ``meta`` tensors: shapes and
+dtypes, no storage (the dry run's abstract parameters).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
+
+# a stand-in generator: initialisers given it return meta tensors
+META_INIT = SimpleNamespace(device=torch.device("meta"))
+
+
+def draw_from(gen) -> Optional[torch.Generator]:
+    """The generator a random factory takes for ``gen`` (none on meta)."""
+    return None if gen.device.type == "meta" else gen
 
 
 def normal(gen: torch.Generator, shape, dtype=torch.float32,
            scale: float = 1.0) -> torch.Tensor:
     """Standard normal draws on ``gen``'s device, times ``scale``."""
-    return torch.randn(shape, generator=gen, device=gen.device,
+    return torch.randn(shape, generator=draw_from(gen), device=gen.device,
                        dtype=dtype) * scale
 
 

@@ -16,8 +16,10 @@ N]``).
 
 Every mixer ("attn", "ssm") and MLP ("dense", "moe", "none") of the
 reference is here, with rms/ln norms, rope/sinusoidal positions and the
-vision frontend stub. The expert-parallel MoE dispatch comes with the LM
-mesh slice and raises here.
+vision frontend stub. On a mesh (``launch.mesh.set_mesh``) the MoE layers
+dispatch expert-parallel when ``moe_ep`` says so (``moe_apply_ep``,
+``moe_apply_ep_tp``), and ``_constrain_batch`` checks the batch and
+sequence axes as JAX's ``with_sharding_constraint`` would.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,7 +37,8 @@ from .attention import (AttnConfig, KVCache, attention, attention_decode,
                         attn_init, prefill_cache)
 from .layers import (dense, dense_init, layernorm, layernorm_init, normal,
                      rmsnorm, rmsnorm_init)
-from .moe import MoEConfig, moe_apply, moe_init
+from .moe import (MoEConfig, moe_apply, moe_apply_ep, moe_apply_ep_tp,
+                  moe_init)
 from .ssm import (SSMCache, SSMConfig, _conv_act, ssm_decode, ssm_forward,
                   ssm_init)
 
@@ -77,8 +81,15 @@ class ModelConfig:
     compute_dtype: Any = torch.bfloat16
     remat: bool = True         # each group under torch.utils.checkpoint
     loss_chunk: int = 512
-    # expert-parallel MoE dispatch ("" | "ep" | "ep_tp"): the LM mesh slice
+    # distribution (set by launch.steps / launch.train on a mesh): the
+    # mesh axes activations shard their batch dim over
+    batch_axes: Tuple[str, ...] = ()
+    # expert-parallel MoE dispatch ("" | "ep" | "ep_tp")
     moe_ep: str = ""
+    moe_capacity_factor: float = 1.3
+    # sequence parallelism: activations shard dim 1 over these axes
+    seq_axes: Tuple[str, ...] = ()
+    seq_axes_size: int = 1
 
     @property
     def hd(self) -> int:
@@ -123,6 +134,35 @@ class ModelConfig:
 
 def _lcm(a, b):
     return a * b // math.gcd(a, b)
+
+
+def _constrain_batch(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The reference pins the leading (batch) dim of an activation to the
+    DP axes, and with sequence parallelism dim 1 to the seq axes, with
+    ``jax.lax.with_sharding_constraint``. That changes no value, and here
+    no layout either: the mesh train step and the expert-parallel
+    dispatch place the batch themselves. It raises where JAX would: with
+    no ambient mesh, on an axis the mesh lacks, or on a batch the axes do
+    not divide (inside ``at_coords``, x is already its data block)."""
+    if not cfg.batch_axes and not cfg.seq_axes:
+        return x
+    from repro_torch.launch.mesh import current_mesh, local_coords
+    mesh = current_mesh()
+    if mesh is None:
+        raise RuntimeError("a sharding constraint on batch_axes "
+                           f"{cfg.batch_axes} needs an ambient mesh "
+                           "(launch.mesh.set_mesh)")
+    size = dict(zip(mesh.axis_names, mesh.devices.shape))
+    for a in tuple(cfg.batch_axes) + tuple(cfg.seq_axes):
+        if a not in size:
+            raise ValueError(f"axis {a!r} is not in the mesh "
+                             f"{mesh.axis_names}")
+    local = local_coords()
+    n = int(np.prod([size[a] for a in cfg.batch_axes if a not in local]))
+    if x.shape[0] % n:
+        raise ValueError(f"the batch dimension {x.shape[0]} is not "
+                         f"divisible by {n} (axes {cfg.batch_axes})")
+    return x
 
 
 class ParamTree(nn.Module):
@@ -257,10 +297,13 @@ def _sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _moe(cfg: ModelConfig, p, hn):
-    if cfg.moe_ep:
-        raise NotImplementedError(
-            f"expert-parallel MoE dispatch (moe_ep={cfg.moe_ep!r}) comes "
-            "with the LM mesh slice")
+    if cfg.moe_ep == "ep":
+        return moe_apply_ep(p, cfg.moe_config(), hn,
+                            batch_axes=cfg.batch_axes,
+                            capacity_factor=cfg.moe_capacity_factor)
+    if cfg.moe_ep == "ep_tp":
+        return moe_apply_ep_tp(p, cfg.moe_config(), hn,
+                               batch_axes=cfg.batch_axes)
     return moe_apply(p, cfg.moe_config(), hn)
 
 
@@ -300,7 +343,7 @@ def _run_groups(cfg: ModelConfig, params, h: torch.Tensor
         for i, (mixer, mlp) in enumerate(slots):
             h, a = _apply_slot(cfg, layers[g * gs + i], mixer, mlp, h)
             aux = aux + a
-        return h, aux
+        return _constrain_batch(cfg, h), aux
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -325,7 +368,7 @@ def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
         v = dense(params["vision_proj"],
                   vision_embeds.to(cfg.compute_dtype))
         h = torch.cat([v, h], dim=1)
-    return h
+    return _constrain_batch(cfg, h)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -439,6 +482,8 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
             view.conv_state.copy_(nc.conv_state)
             view.ssm_state.copy_(nc.ssm_state)
         h, _ = _mlp_block(cfg, lp, mlp, h + out)
+        if l % cfg.group_size == cfg.group_size - 1:
+            h = _constrain_batch(cfg, h)
     h = _norm(cfg, params["final_norm"], h)
     return logits_from_hidden(params, cfg, h)[:, 0], caches
 

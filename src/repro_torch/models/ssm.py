@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import causal_conv1d, causal_conv1d_init, dense, dense_init
+from .layers import (causal_conv1d, causal_conv1d_init, dense, dense_init,
+                     draw_from)
 
 
 class SSMConfig(NamedTuple):
@@ -62,7 +63,8 @@ def ssm_init(gen: torch.Generator, cfg: SSMConfig, dtype=torch.float32):
     conv_ch = di + 2 * N
     dev = gen.device
     lo, hi = math.log(1e-3), math.log(1e-1)
-    u = torch.rand((H,), generator=gen, device=dev) * (hi - lo) + lo
+    u = torch.rand((H,), generator=draw_from(gen), device=dev) \
+        * (hi - lo) + lo
     return {
         "in_proj": dense_init(gen, cfg.d_model, d_in_proj, dtype=dtype),
         "conv": causal_conv1d_init(gen, conv_ch, cfg.d_conv, dtype),

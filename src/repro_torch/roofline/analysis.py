@@ -13,11 +13,18 @@ those stay data-sheet figures.
 
 The SpMM kernels of this package compute in float32 on the CUDA cores, so
 the ridge that matters for them is the float32 one (~20 flop/byte).
-Parsing compiled HLO (``from_compiled``) belongs to the JAX package and is
-not ported.
+
+:class:`Roofline` holds the three terms of a step from the dry run's
+counts (``launch.dryrun``): compute over the data sheet's dense bf16
+tensor-core rate (989 TFLOP/s), memory over HBM3, collectives over one
+NVLink direction. :func:`from_compiled` reads them from a lowered
+cell's op counts (``roofline.op_count``, the port's counterpart of the
+reference's HLO parse); :func:`parse_collective_bytes` reads the
+collectives the port's mesh helpers recorded there.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 # NVIDIA H100 SXM data sheet figures (per card)
@@ -25,6 +32,11 @@ PEAK_FLOPS_FP32 = 67e12
 HBM_BW = 3.35e12
 NVLINK_BW = 450e9
 L2_BYTES = 50 * 2 ** 20
+# the data sheet's dense bf16 tensor-core rate (SXM, no sparsity)
+PEAK_FLOPS_BF16 = 989e12
+
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter",
+                  "all-to-all", "collective-permute")
 
 
 def device_properties(device=None) -> Dict[str, object]:
@@ -271,3 +283,112 @@ def spmm_distributed_time(m: int, n: int, k: int, num_devices: int,
         num_chunks=num_chunks, hbm_bw=hbm_bw,
         model_devices=model_devices, compact_x=compact_x,
         n_touched=n_touched, op=op, structure=structure, gather=gather)
+
+
+# --------------------------------------------------------------------------
+# step roofline from the dry run's counts
+# --------------------------------------------------------------------------
+def parse_collective_bytes(counted) -> Dict[str, Dict[str, float]]:
+    """Per collective kind: {'bytes': sum of output bytes, 'count': n},
+    from what the port's mesh helpers recorded: an ``OpCounter``, a
+    compiled cell (its ``counter``), or a list of ``(kind, bytes)``."""
+    out = {k: {"bytes": 0.0, "count": 0} for k in COLLECTIVE_OPS}
+    counter = getattr(counted, "counter", counted)
+    if hasattr(counter, "collectives"):
+        for kind, rec in counter.collectives.items():
+            out[kind]["bytes"] += float(rec["bytes"])
+            out[kind]["count"] += int(rec["count"])
+        return out
+    for kind, nbytes in counted:
+        if kind not in out:
+            raise ValueError(f"unknown collective {kind!r}")
+        out[kind]["bytes"] += float(nbytes)
+        out[kind]["count"] += 1
+    return out
+
+
+def collective_bytes_total(parsed: Dict[str, Dict[str, float]]) -> float:
+    total = 0.0
+    for kind, rec in parsed.items():
+        mult = 2.0 if kind == "all-reduce" else 1.0
+        total += mult * rec["bytes"]
+    return total
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops_per_device: float
+    bytes_per_device: float
+    collective_bytes_per_device: float
+    chips: int
+    model_flops: float = 0.0          # analytic 6*N_active*D (global)
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops_per_device / PEAK_FLOPS_BF16
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_per_device / HBM_BW
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes_per_device / NVLINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Roofline lower bound on step time = max of the three terms
+        (perfect overlap assumption)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_fraction(self) -> float:
+        """MODEL_FLOPS / (counted FLOPs x chips): how much of the counted
+        compute is 'useful' (catches remat/redundancy waste)."""
+        total = self.flops_per_device * self.chips
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Achievable MFU at the roofline bound: useful FLOPs / (chips x
+        peak x step_time)."""
+        t = self.step_time_s
+        if t <= 0:
+            return 0.0
+        return self.model_flops / (self.chips * PEAK_FLOPS_BF16 * t)
+
+    def to_dict(self) -> Dict:
+        return {
+            "flops_per_device": self.flops_per_device,
+            "bytes_per_device": self.bytes_per_device,
+            "collective_bytes_per_device": self.collective_bytes_per_device,
+            "chips": self.chips,
+            "model_flops": self.model_flops,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "bottleneck": self.bottleneck,
+            "step_time_s": self.step_time_s,
+            "useful_flops_fraction": self.useful_flops_fraction,
+            "roofline_fraction": self.roofline_fraction,
+        }
+
+
+def from_compiled(compiled, chips: int, model_flops: float = 0.0
+                  ) -> Roofline:
+    """Roofline terms of a compiled cell (``launch.steps.lower_cell(...)
+    .compile()``): its op counter ran the whole step once over every mesh
+    position, so each total is divided by ``chips`` for the per-device
+    term."""
+    c = compiled.counter
+    return Roofline(flops_per_device=c.flops / chips,
+                    bytes_per_device=c.bytes / chips,
+                    collective_bytes_per_device=collective_bytes_total(
+                        parse_collective_bytes(c)) / chips,
+                    chips=chips, model_flops=model_flops)

@@ -41,6 +41,7 @@ from repro_torch.examples import pagerank
 from repro_torch.kernels import merge_spmv as TMS
 from repro_torch.kernels import ref as TKR
 from repro_torch.roofline import analysis as TRA
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 # the modules, not the functions the packages export under the same name
 JA = importlib.import_module("repro.core.autotune")
@@ -51,23 +52,12 @@ CASES = {"uniform": lambda: TM.uniform(400, 350, 3000, 0),
          "road_like": lambda: TM.mesh2d(20, 1)}
 
 # names of the reference's package exports whose modules are not ported
-# yet (ROADMAP.md, queue 1)
+# yet (ROADMAP.md, queue 1): none are left
 NOT_PORTED = {
     "core": set(), "spmm": set(), "models": set(), "data": set(),
-    "optim": set(), "checkpoint": set(),
-    "launch": {"make_production_mesh"},
-    "runtime": {"build_mesh", "reshard"},
-    "roofline": {"Roofline", "from_compiled", "parse_collective_bytes",
-                 "collective_bytes_total"},
+    "optim": set(), "checkpoint": set(), "launch": set(), "runtime": set(),
+    "roofline": set(),
 }
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pair(name):

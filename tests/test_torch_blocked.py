@@ -42,6 +42,7 @@ from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
 from repro_torch.spmm import SparseOperator, spmm, spmm_ref
 from repro_torch.spmm import kernels as TK
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 TC = importlib.import_module("repro_torch.core.convert")
 JCONV = importlib.import_module("repro.core.convert")

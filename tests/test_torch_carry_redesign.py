@@ -45,18 +45,11 @@ from repro_torch.kernels import merge_spmv as TMS
 from repro_torch.kernels import ops as TOPS
 from repro_torch.spmm import csr_spmm
 from repro_torch.spmm import kernels as TK
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 SPANS = 256
 DENSE_ROW = 11
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(got, want):

@@ -1188,7 +1188,8 @@ def test_k8_equals_k1_on_the_slab_on_mesh_shards(cuda, label, k):
     else:
         part = TD.partition_sellcs_nnz(sc, 3, num_chunks=2, compact_x=True)
         shards = [sh for sp in part.chunk_plan[1] for sh in sp.shards]
-    X = torch.randn((coo.shape[1], k), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1000 + k)
+    X = torch.randn((coo.shape[1], k), device=cuda, generator=gen)
     for sh in shards:
         if sh.width_rows == 0:
             continue

@@ -37,17 +37,10 @@ from repro_torch.core import PlanSpec
 from repro_torch.data import matrices as TM
 from repro_torch.launch import serve as tserve
 from repro_torch.spmm import distributed as TD
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 RTOL = ATOL = 2e-4
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _trip(m=300, n=300, nnz=2400, seed=0):

@@ -24,6 +24,7 @@ from repro_torch.data import matrices as TM
 from repro_torch.kernels import merge_spmv as TMS
 from repro_torch.spmm import sellcs as TSC
 from repro_torch.spmm.operator import coo_fingerprint as t_fingerprint
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 # core re-exports the function ``convert``, which shadows the module name
 TC = importlib.import_module("repro_torch.core.convert")

@@ -42,18 +42,11 @@ from repro_torch.spmm import distributed as TD
 from repro_torch.spmm import kernels as TK
 from repro_torch.spmm import sellcs_spmm
 from repro_torch.spmm import slots_plan as SP
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 RTOL = ATOL = 2e-4
 CASES = {"mawi_like": 0.02, "hhh_like": 0.05, "road_like": 0.02}
 C = 32
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pair(name):

@@ -44,17 +44,10 @@ from repro_torch.kernels import merge_spmv as TMS
 from repro_torch.kernels import moe_group_matmul as TK9
 from repro_torch.kernels import ops as TOPS
 from repro_torch.spmm import csr_spmm
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 RTOL = ATOL = 2e-4
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _is_bf16(t):

@@ -31,6 +31,7 @@ from repro_torch.kernels import ops as TOPS
 from repro_torch.spmm import coo_to_sellcs
 from repro_torch.spmm import kernels as TK
 from repro_torch.spmm import reference as TR
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 RTOL = ATOL = 2e-4
 M_TILE = 128

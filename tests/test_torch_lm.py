@@ -33,6 +33,7 @@ from repro_torch.models import attention as TATT
 from repro_torch.models import layers as TL
 from repro_torch.models.model import (decode_step, forward, init_params,
                                       prefill)
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 ARCH = "granite-moe-1b-a400m"
 B, P, STEPS = 2, 8, 4

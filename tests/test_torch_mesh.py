@@ -18,6 +18,7 @@ distributed tests' rule: float32 sums over shards and spans in another
 order); K8's plain version within ``rtol = atol = 1e-5`` of the Pallas
 body; the gather modes bitwise equal to each other.
 """
+import functools
 import json
 import os
 import subprocess
@@ -47,6 +48,7 @@ from repro_torch.spmm import SparseOperator, coo_to_sellcs
 from repro_torch.spmm import distributed as TD
 from repro_torch.spmm import kernels as TK
 from repro_torch.spmm import reference as TR
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -165,6 +167,7 @@ def _mesh(shape):
     return TMESH.make_spmm_mesh(shape, devices=[CPU] * (shape[0] * shape[1]))
 
 
+@functools.lru_cache(maxsize=None)
 def _pair(name):
     trip = TRIPS[name]()
     sym = "symmetric" if name == "sym" else "general"
@@ -343,6 +346,15 @@ def test_fused_kernel_plain_matches_pallas_interpret(k):
 # ---------------------------------------------------------------------------
 # the multiplies
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _oracle(name, k, op):
+    """The reference's single-device answer on the grid's X (shared by
+    the grid's schedules and meshes)."""
+    jc, tc, _, _ = _pair(name)
+    X = _x(tc.shape[0] if op == "T" else tc.shape[1], k, k)
+    return np.asarray(JR.spmm_ref(jc, jnp.asarray(X), op=op))
+
+
 def _multiply(part, X, mesh, sched, nc, op, impl, gather):
     if sched == "row":
         return TD.spmm_row_distributed(part, X, mesh, impl=impl, op=op,
@@ -389,7 +401,7 @@ def test_multiply_grid_matches_reference_oracle(name, sched, mesh_shape, op):
         part = _partition(tsc, sched, mesh_shape[0], nc, cx)
         for k in (1, 8, 64):
             X = _x(tc.shape[0] if op == "T" else tc.shape[1], k, k)
-            want = np.asarray(JR.spmm_ref(jc, jnp.asarray(X), op=op))
+            want = _oracle(name, k, op)
             outs = [_multiply(part, torch.from_numpy(X), mesh, sched, nc,
                               op, "plain", g)
                     for g in ((None, "overlap", "fused") if cx else (None,))]

@@ -24,6 +24,7 @@ from repro_torch.kernels import moe_group_matmul as TK9
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
 from repro_torch.models import moe as TMOE
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 RTOL = ATOL = 2e-4
 E, K, N = 4, 256, 384

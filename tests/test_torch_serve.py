@@ -29,6 +29,7 @@ from repro_torch.data import matrices as TM
 from repro_torch.launch import serve as tserve
 from repro_torch.spmm import (RequestBatcher, SparseOperator, batch_spmv,
                               spmm_coo)
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-4, 2e-4
 CPU = "cpu"

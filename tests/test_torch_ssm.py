@@ -27,18 +27,11 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import accounting as TACC
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as TS
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 REL = 1e-5
 B = 2
 CFG = dict(d_model=32, d_state=8, headdim=8, chunk=8)   # H = 8 heads
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel_close(got, want, rel=REL):

@@ -38,18 +38,11 @@ from repro_torch.launch.steps import TrainState, make_train_step
 from repro_torch.models import model as TM
 from repro_torch.optim.adamw import leaf_stacks, leaves
 from repro_torch.runtime import Supervisor
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 REL = 1e-5
 ARCHS = ["llama3.2-1b", "mamba2-1.3b", "granite-moe-1b-a400m",
          "jamba-1.5-large-398b"]
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel_close(got, want, rel=REL, what=""):
@@ -506,5 +499,50 @@ def test_train_cli_matches_reference(tmp_path, monkeypatch):
     again = ttrain.main(argv + ["--ckpt-dir", d, "--device", "cpu",
                                 "--resume", "auto"])
     assert again["start"] == 3 and again["losses"] == []
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # a mesh needs its positions: the machine's cards unless named
+    with pytest.raises(ValueError, match="the mesh needs 2 devices"):
         ttrain.main(argv + ["--mesh", "2x1", "--device", "cpu"])
+
+
+def test_replayed_update_holds_the_restored_optimizer_state(tmp_path):
+    """The resume check of ``chip_smoke.py``'s training phase: the last
+    step, replayed from the checkpoint before it, gives the uninterrupted
+    run's last parameters (bit for bit on the CPU), while a restore that
+    lost the AdamW moments or the step count leaves the replayed loss
+    (read before the update) as it was and moves the parameters by far
+    more than the phase's 1e-2 of the update."""
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    steps, lr = 3, 1e-3
+    argv = ["--arch", "mamba2-1.3b", "--reduced", "--steps", str(steps),
+            "--batch", "2", "--seq", "16", "--save-every", "2", "--lr",
+            str(lr), "--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    run = ttrain.main(argv)
+    final = leaves(run["state"].params)
+    opt = make_optimizer("adamw", warmup_cosine(lr, 1, steps))
+    os.remove(tmp_path / f"step_{steps:08d}.COMMITTED")
+    pipe = TP.TokenPipeline(vocab=run["cfg"].vocab, batch=2, seq=16, seed=0)
+    step_fn = make_train_step(run["cfg"], opt)
+    off = {}
+    for lost in ("nothing", "moments", "step"):
+        params = TM.init_params(torch.Generator().manual_seed(1), run["cfg"])
+        state, start = Supervisor(str(tmp_path)).restore(
+            TrainState(params, opt.init(params)))
+        assert start == 2
+        st = state.opt
+        if lost == "moments":
+            st = st._replace(m=[torch.zeros_like(t) for t in st.m],
+                             v=[torch.zeros_like(t) for t in st.v])
+        elif lost == "step":
+            st = st._replace(step=torch.zeros_like(st.step))
+        with torch.no_grad():
+            upd = sum((f - t).double().square().sum()
+                      for f, t in zip(final, leaves(state.params)))
+        state, m = step_fn(TrainState(state.params, st), {
+            "tokens": torch.from_numpy(pipe.batch_at(2)["tokens"])})
+        assert float(m["loss"]) == run["losses"][2]
+        with torch.no_grad():
+            err = sum((t - f).double().square().sum()
+                      for t, f in zip(leaves(state.params), final))
+        off[lost] = float((err / upd).sqrt())
+    assert off["nothing"] == 0.0, off
+    assert off["moments"] > 0.1 and off["step"] > 0.1, off

@@ -33,6 +33,7 @@ from repro_torch.spmm import reference as TR
 from repro_torch.spmm import (SparseOperator, TransposedOperator,
                               coo_to_sellcs, sellcs_spmm, sparse_matmul,
                               spmm, spmm_coo_t, spmm_ref, spmm_sellcs_t)
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-4, 2e-4
 CPU = "cpu"
